@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; builds the four kernels from
+Needs one CUDA card and nvcc; builds the kernels from
 sift_tpu_torch/csrc, then runs, one line per phase:
 
   0. environment: torch/CUDA versions, the card's name and power limit;
@@ -11,14 +11,21 @@ sift_tpu_torch/csrc, then runs, one line per phase:
   1. build of the kernel library (seconds);
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes, with the CPU tests' tolerances, and both timed
-     (median over 20 runs, CUDA events);
+     (median over 20 runs, CUDA events); K1-batch and K2-batch at B = 8
+     1080p frames, each frame also equal to the single-frame kernel;
   3. the whole path on a 480x640 synthetic pair, CPU (plain versions)
      against the card (kernels);
   4. the main path at 1920x1080: a 640x480 textured object warped into
      a synthetic scene by a known homography must be found, with its
      corners within 2 px, and every kernel must have launched; then the
      steady-state time per detect_object and the frames/s of bench.py's
-     1080p pair step (two detect+describe, one match).
+     1080p pair step (two detect+describe, one match);
+  5. the throughput path at 1080p, B = 8 (frame i is the scene rolled by
+     17 i columns): bench.py's batch step, detect_and_compute_batch plus
+     7 consecutive-frame matches, must launch K1-batch, K2-batch, K3 and
+     K4 and not the single-frame K1 and K2; every row of the batch must
+     equal detect_and_compute on its frame; then its frames/s and peak
+     device memory.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}. Any
@@ -39,7 +46,10 @@ import numpy as np
 SCENE_HW = (1080, 1920)
 OBJECT_HW = (480, 640)
 PAIR_HW = (480, 640)
+BATCH = 8
+ROLL_STEP = 17       # columns between consecutive frames (bench.py:493)
 TIMING_RUNS = 20
+KERNELS = ("K1", "K1-batch", "K2", "K2-batch", "K3", "K4")
 
 
 class SmokeFailure(Exception):
@@ -232,13 +242,25 @@ def median_ms(fn, runs: int = TIMING_RUNS) -> float:
     return statistics.median(times)
 
 
-def phase_kernels(scene_np: np.ndarray) -> list:
+def batch_frames(scene):
+    """(BATCH, H, W): frame i is the scene rolled by ROLL_STEP * i
+    columns."""
+    import torch
+    return torch.stack([torch.roll(scene, ROLL_STEP * i, dims=1)
+                        for i in range(BATCH)])
+
+
+def phase_kernels(scene_np: np.ndarray) -> dict:
     """Phase 2: each kernel against its plain version at main-path shapes."""
     import torch
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
     from sift_tpu_torch.ops import conv, pyramid
-    from sift_tpu_torch.ops.conv_cuda import blur_vh, blur_vh_plain
+    from sift_tpu_torch.ops.conv_cuda import (blur_vh, blur_vh_batch,
+                                              blur_vh_batch_plain,
+                                              blur_vh_plain)
     from sift_tpu_torch.ops.extrema_cuda import (extrema_scores,
+                                                 extrema_scores_batch,
+                                                 extrema_scores_batch_plain,
                                                  extrema_scores_plain)
     from sift_tpu_torch.ops.ori_gather_cuda import (gather_patches,
                                                     gather_patches_plain)
@@ -248,12 +270,13 @@ def phase_kernels(scene_np: np.ndarray) -> list:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     img = torch.from_numpy(scene_np).to(dev)
-    report = []
+    frames = batch_frames(img)
+    report = {}
 
-    def record(name, src, replaces, err, ms, plain_ms):
-        report.append({"name": name, "route": "cuda", "source": src,
+    def record(key, name, src, replaces, err, ms, plain_ms):
+        report[key] = {"name": name, "route": "cuda", "source": src,
                        "replaces": replaces, "launches": 0,
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
     # K1 at 1080p, S=1 (base) and S=4 (octave 0)
     x = conv.zero_last_row_col(img)
@@ -270,9 +293,34 @@ def phase_kernels(scene_np: np.ndarray) -> list:
         k1.append((len(sig), err, ms, pms))
         print(f"phase 2 K1 blur 1080x1920 S={len(sig)}: max_abs_err={err!r} "
               f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    record("K1 separable Gaussian blur", "sift_tpu_torch/csrc/blur.cu",
+    record("K1", "K1 separable Gaussian blur", "sift_tpu_torch/csrc/blur.cu",
            "sift_tpu/ops/conv_pallas.py:92", max(e for _, e, _, _ in k1),
            k1[1][2], k1[1][3])
+
+    # K1-batch on 8 frames at 1080p, S=1 and S=4; each frame must also be
+    # the single-frame K1 on it, bit for bit
+    xb = conv.zero_last_row_col(frames)
+    k1b = []
+    for sig in ((cfg.init_blur_sigma,), cfg.scale_sigmas()[1:]):
+        kmat, _ = conv.stack_kernels(sig)
+        got, want = blur_vh_batch(xb, kmat), blur_vh_batch_plain(xb, kmat)
+        torch.cuda.synchronize()
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-3),
+              f"K1-batch S={len(sig)} disagrees with its plain version")
+        check(all(torch.equal(got[b], blur_vh(xb[b], kmat))
+                  for b in range(BATCH)),
+              f"K1-batch S={len(sig)}: a frame differs from K1 on it")
+        err = float((got - want).abs().max())
+        del got, want
+        ms = median_ms(lambda: blur_vh_batch(xb, kmat))
+        pms = median_ms(lambda: blur_vh_batch_plain(xb, kmat))
+        k1b.append((len(sig), err, ms, pms))
+        print(f"phase 2 K1-batch blur {tuple(xb.shape)} S={len(sig)}: "
+              f"max_abs_err={err!r} (each frame equals K1) kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms")
+    record("K1-batch", "K1-batch separable Gaussian blur, B frames",
+           "sift_tpu_torch/csrc/blur.cu", "sift_tpu/ops/conv_pallas.py:173",
+           max(e for _, e, _, _ in k1b), k1b[1][2], k1b[1][3])
 
     # K2 on the (4, 1080, 1920) DoG of the synthetic frame
     octs = pyramid.build_gaussian_pyramid(img, cfg)
@@ -286,8 +334,31 @@ def phase_kernels(scene_np: np.ndarray) -> list:
     print(f"phase 2 K2 extrema {tuple(dog.shape)}: candidates="
           f"{int((got > 0).sum())} max_abs_err={err!r} kernel {ms:.4f} ms, "
           f"plain {pms:.4f} ms")
-    record("K2 DoG extrema scores", "sift_tpu_torch/csrc/extrema.cu",
+    record("K2", "K2 DoG extrema scores", "sift_tpu_torch/csrc/extrema.cu",
            "sift_tpu/ops/extrema_pallas.py:90", err, ms, pms)
+
+    # K2-batch on the (8, 4, 1080, 1920) DoG of the eight frames
+    dogb = pyramid.build_dog_pyramid_batch(
+        pyramid.build_gaussian_pyramid_batch(frames, cfg))[0].contiguous()
+    got = extrema_scores_batch(dogb, cfg)
+    want = extrema_scores_batch_plain(dogb, cfg)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want),
+          "K2-batch is not bit-identical to its plain version")
+    check(all(torch.equal(got[b], extrema_scores(dogb[b], cfg))
+              for b in range(BATCH)), "K2-batch: a frame differs from K2")
+    err = float((got - want).abs().max())
+    ncand = [int((got[b] > 0).sum()) for b in range(BATCH)]
+    del got, want
+    ms = median_ms(lambda: extrema_scores_batch(dogb, cfg))
+    pms = median_ms(lambda: extrema_scores_batch_plain(dogb, cfg))
+    print(f"phase 2 K2-batch extrema {tuple(dogb.shape)}: candidates per "
+          f"frame={ncand} max_abs_err={err!r} (each frame equals K2) kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms")
+    record("K2-batch", "K2-batch DoG extrema scores, B frames",
+           "sift_tpu_torch/csrc/extrema.cu",
+           "sift_tpu/ops/extrema_pallas.py:167", err, ms, pms)
+    del dogb, xb
 
     # K3: p=39 with N=1024 (orientation), p=85 with N=64 and N=1024
     k3 = []
@@ -308,7 +379,7 @@ def phase_kernels(scene_np: np.ndarray) -> list:
         k3.append((p, n, ms, pms))
         print(f"phase 2 K3 gather p={p} N={n}: max_abs_err=0.0 kernel "
               f"{ms:.4f} ms, plain {pms:.4f} ms")
-    record("K3 keypoint patch gather", "sift_tpu_torch/csrc/gather.cu",
+    record("K3", "K3 keypoint patch gather", "sift_tpu_torch/csrc/gather.cu",
            "sift_tpu/ops/ori_gather_pallas.py:109", 0.0, k3[1][2], k3[1][3])
 
     # K4 at 1536 x 1536 with sentinel rows and tied duplicates
@@ -334,7 +405,7 @@ def phase_kernels(scene_np: np.ndarray) -> list:
     print(f"phase 2 K4 top-2 L1 {n}x{m}: idx equal on {int(clear.sum())}/{n} "
           f"clear rows, max_abs_err={err!r} kernel {ms:.4f} ms, "
           f"plain {pms:.4f} ms")
-    record("K4 top-2 L1 matcher", "sift_tpu_torch/csrc/knn2.cu",
+    record("K4", "K4 top-2 L1 matcher", "sift_tpu_torch/csrc/knn2.cu",
            "sift_tpu/ops/match_pallas.py:83", err, ms, pms)
     return report
 
@@ -359,29 +430,45 @@ def phase_cpu_vs_card():
           f"(cpu run {t_cpu:.1f} s)")
 
 
-def phase_main_path(scene_np, obj_np, true_corners, report) -> None:
-    """Phase 4: the main path at full size, with launch counts."""
+def wrappers() -> dict:
+    """Each kernel's wrapper, whose `launches` counts its launches."""
+    from sift_tpu_torch.ops.conv_cuda import blur_vh, blur_vh_batch
+    from sift_tpu_torch.ops.extrema_cuda import (extrema_scores,
+                                                 extrema_scores_batch)
+    from sift_tpu_torch.ops.ori_gather_cuda import gather_patches
+    from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda
+    return {"K1": blur_vh, "K1-batch": blur_vh_batch, "K2": extrema_scores,
+            "K2-batch": extrema_scores_batch, "K3": gather_patches,
+            "K4": knn2_l1_cuda}
+
+
+def counted(fn):
+    """Run fn() with every launch count set to 0 just before it; return
+    (its result, the counts read just after it)."""
+    import torch
+    torch.cuda.synchronize()
+    for w in wrappers().values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers().items()}
+
+
+def phase_main_path(scene_np, obj_np, true_corners, report) -> float:
+    """Phase 4: the main path at full size, with launch counts; returns
+    the pair step's frames/s."""
     import torch
     from sift_tpu_torch import sift
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
     from sift_tpu_torch.ops import match as match_mod
-    from sift_tpu_torch.ops.conv_cuda import blur_vh
-    from sift_tpu_torch.ops.extrema_cuda import extrema_scores
-    from sift_tpu_torch.ops.ori_gather_cuda import gather_patches
-    from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda
     from sift_tpu_torch.pipeline import detect_object
 
-    wrappers = (blur_vh, extrema_scores, gather_patches, knn2_l1_cuda)
     scene = torch.from_numpy(scene_np).cuda()
     obj = torch.from_numpy(obj_np).cuda()
-    torch.cuda.synchronize()
-    for fn in wrappers:
-        fn.launches = 0
-    det = detect_object(scene, obj, cfg)
-    torch.cuda.synchronize()
-    counts = [fn.launches for fn in wrappers]
-    for entry, nl in zip(report, counts):
-        entry["launches"] = nl
+    det, launches = counted(lambda: detect_object(scene, obj, cfg))
+    counts = [launches[k] for k in ("K1", "K2", "K3", "K4")]
+    for k in ("K1", "K2", "K3", "K4"):
+        report[k]["launches"] = launches[k]
     check(all(nl > 0 for nl in counts),
           f"a kernel did not launch on the main path: {counts}")
     corners = det.corners.cpu().numpy()
@@ -410,6 +497,84 @@ def phase_main_path(scene_np, obj_np, true_corners, report) -> None:
     print(f"phase 4 timing: detect_object {ms:.3f} ms (median of 10), "
           f"1080p pair step {pair_ms:.3f} ms = "
           f"{2000.0 / pair_ms:.3f} frames/s")
+    return 2000.0 / pair_ms
+
+
+def phase_batch(scene_np, report, pair_fps: float) -> None:
+    """Phase 5: the throughput path, detect_and_compute_batch on BATCH
+    1080p frames and the BATCH - 1 consecutive-frame matches (bench.py's
+    batch step, bench.py:511-519), with launch counts; each row against
+    detect_and_compute on its frame; frames/s and peak memory."""
+    import torch
+    from sift_tpu_torch import sift
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops import match as match_mod
+
+    frames = batch_frames(torch.from_numpy(scene_np).cuda())
+
+    def batch_step():
+        kp, d = sift.detect_and_compute_batch(frames, cfg)
+        ms = [match_mod.match_ratio(d[b], d[b - 1], q_valid=kp.valid[b],
+                                    t_valid=kp.valid[b - 1],
+                                    ratio=cfg.match_ratio)
+              for b in range(1, BATCH)]
+        return kp, d, ms
+
+    (kp, d, ms), launches = counted(batch_step)
+    for k in ("K1-batch", "K2-batch"):
+        report[k]["launches"] = launches[k]
+    check(all(launches[k] > 0 for k in ("K1-batch", "K2-batch", "K3", "K4")),
+          f"a kernel of the batch path did not launch: {launches}")
+    check(launches["K1"] == 0 and launches["K2"] == 0,
+          f"the batch path launched a single-frame kernel: {launches}")
+    n = sum(cfg.out_caps)
+    check(tuple(kp.x.shape) == (BATCH, n)
+          and tuple(d.shape) == (BATCH, n, cfg.descr_size),
+          f"batch shapes {tuple(kp.x.shape)} {tuple(d.shape)}")
+    check(bool(torch.isfinite(d).all()) and all(
+        bool(torch.isfinite(getattr(kp, f)).all())
+        for f in ("x", "y", "size", "angle", "response")),
+        "non-finite batch output")
+    n_good = [int(m.good.sum()) for m in ms]
+    check(min(n_good) > 20, f"too few consecutive-frame matches: {n_good}")
+
+    # every row equals detect_and_compute on its frame: valid and integer
+    # fields exactly, float fields within 1e-4 and descriptors within 1e-3
+    # (tests/test_batch.py's bounds)
+    fmax = dmax = 0.0
+    counts = []
+    for b in range(BATCH):
+        k1, d1 = sift.detect_and_compute(frames[b], cfg)
+        kb = kp.frame(b)
+        check(torch.equal(kb.valid, k1.valid), f"frame {b}: valid differs")
+        for f in ("octave", "layer", "r", "c"):
+            check(torch.equal(getattr(kb, f), getattr(k1, f)),
+                  f"frame {b}: {f} differs")
+        v = k1.valid
+        for f in ("x", "y", "size", "angle", "response"):
+            fmax = max(fmax, float((getattr(kb, f)[v] - getattr(k1, f)[v])
+                                   .abs().max()))
+        dmax = max(dmax, float((d[b][v] - d1[v]).abs().max()))
+        counts.append(int(k1.count()))
+    check(fmax <= 1e-4 and dmax <= 1e-3,
+          f"batch rows differ from single frames: fields {fmax}, "
+          f"descriptors {dmax}")
+    print(f"phase 5 batch path {tuple(frames.shape)}: launches "
+          f"{[launches[k] for k in KERNELS]} (K1, K1-batch, K2, K2-batch, "
+          f"K3, K4) keypoints per frame={counts} good matches={n_good} "
+          f"rows vs single frames: max field diff={fmax!r} max descriptor "
+          f"diff={dmax!r}")
+    del kp, d, ms
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _median_wall_ms(batch_step)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 5 timing: batch step (detect_and_compute_batch B={BATCH} "
+          f"+ {BATCH - 1} matches) {step_ms:.3f} ms (median of 10) = "
+          f"{BATCH * 1000.0 / step_ms:.3f} frames/s, pair step "
+          f"{pair_fps:.3f} frames/s; peak device memory "
+          f"{peak / 2**30:.3f} GiB")
 
 
 def _median_wall_ms(fn, runs: int = 10) -> float:
@@ -451,9 +616,10 @@ def main() -> int:
     scene, obj, true = full_size_inputs()
     report = phase_kernels(scene)
     phase_cpu_vs_card()
-    phase_main_path(scene, obj, true, report)
+    pair_fps = phase_main_path(scene, obj, true, report)
+    phase_batch(scene, report, pair_fps)
 
-    print(json.dumps({"kernels": report}))
+    print(json.dumps({"kernels": [report[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,10 +2,11 @@
 
 gray frame -> Gaussian/DoG pyramid -> 3x3x3 extrema -> subpixel refine
 -> orientation -> 128-d descriptors -> top-2 L1 match -> RANSAC
-homography -> object corners. sift_tpu (JAX) is the reference it is
-held against. The four kernels of the path are CUDA C++ for sm_90a
-(csrc/), built with nvcc at first use; every kernel wrapper runs its
-plain PyTorch version for CPU tensors.
+homography -> object corners, for one frame or for B frames at once
+(sift.detect_and_compute_batch). sift_tpu (JAX) is the reference it is
+held against. Its kernels are CUDA C++ for sm_90a (csrc/), built with
+nvcc at first use; every kernel wrapper runs its plain PyTorch version
+for CPU tensors.
 """
 
 __version__ = "0.1.0"

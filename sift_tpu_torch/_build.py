@@ -29,10 +29,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points and their argument types; every one returns the
-# cudaError_t of its launch as an int
+# cudaError_t of its launch as an int. ctypes does not check these
+# against the C functions, so they must change with the sources.
 _SIGNATURES = {
-    "sift_blur_multi": (_P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "sift_extrema_scores": (_P, _P, _I, _I, _I, _F, _I, _P),
+    # img, tmp, out, B, H, W, S, K, taps, stream
+    "sift_blur_multi": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # dog, out, B, D, nl, H, W, thr, border, stream
+    "sift_extrema_scores": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "sift_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "sift_knn2_l1": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
 }

@@ -8,7 +8,11 @@ Usage mirrors the reference (`./sift <scene> <object>`) and
         [--device cuda]
 
 The visualization is written to a file with --out. Prints match and
-homography stats and, with --timing, per-stage wall times. The default
+homography stats and, with --timing, per-stage wall times
+(utils.profiling.StageTimer). An octave whose output batch fills bumps
+utils.logger.COUNTERS' out_cap_saturated/<scene|object>/octave<o>, and
+with --diagnose-caps one whose NMS survivors exceed its candidate cap
+bumps detect_cap_saturated/...; both also log a warning. The default
 device is CUDA, which must be present; a CPU run, on the plain PyTorch
 version of every kernel, has to be asked for with --device cpu.
 """
@@ -16,11 +20,8 @@ version of every kernel, has to be asked for with --device cpu.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
-import logging
 import sys
-import time
 
 import numpy as np
 import torch
@@ -30,8 +31,10 @@ from sift_tpu_torch import sift as _sift
 from sift_tpu_torch.config import DEFAULT_CONFIG
 from sift_tpu_torch.ops import pyramid as _pyr
 from sift_tpu_torch.pipeline import detect_object
+from sift_tpu_torch.utils.logger import COUNTERS, get_logger
+from sift_tpu_torch.utils.profiling import StageTimer
 
-_LOG = logging.getLogger("sift_tpu_torch.cli")
+_LOG = get_logger("cli")
 
 
 def _draw(scene_path: str, obj_path: str, det, out_path: str) -> None:
@@ -84,26 +87,20 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("CUDA is not available; pass --device cpu for a CPU run")
 
-    times: dict = {}
-
-    @contextlib.contextmanager
-    def stage(name):
-        t0 = time.perf_counter()
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        times[name] = time.perf_counter() - t0
-
-    with stage("ingest"):
+    timer = StageTimer(enabled=True)
+    with timer.stage("ingest"):
         scene = torch.from_numpy(
             sio.read_image(args.scene, resized=not args.no_resize)).to(device)
         obj = torch.from_numpy(sio.read_image(args.object)).to(device)
+        timer.sink((scene, obj))
 
     cfg = dataclasses.replace(DEFAULT_CONFIG, match_ratio=args.ratio)
-    with stage("pipeline(first run)"):
+    with timer.stage("pipeline(first run)"):
         det = detect_object(scene, obj, cfg=cfg)
-    with stage("pipeline(steady)"):
+        timer.sink(det.corners)
+    with timer.stage("pipeline(steady)"):
         det = detect_object(scene, obj, cfg=cfg)
+        timer.sink(det.corners)
 
     # a (near-)full octave batch means out_caps may have truncated (the
     # reference emits unboundedly, src/sift.cpp:538)
@@ -111,6 +108,7 @@ def main(argv=None) -> int:
                           ("object", det.object_kp, obj)):
         sat = _sift.octave_saturation(kp, cfg).cpu().numpy()
         for o in np.where(sat)[0]:
+            COUNTERS.inc(f"out_cap_saturated/{name}/octave{o}")
             _LOG.warning(
                 "octave %d of %s hit out_caps[%d]=%d: weakest keypoints "
                 "may be truncated; raise SIFTConfig.out_caps",
@@ -123,6 +121,7 @@ def main(argv=None) -> int:
         csat = _sift.candidate_saturation(
             _pyr.build_gaussian_pyramid(img, cfg), cfg).cpu().numpy()
         for o in np.where(csat)[0]:
+            COUNTERS.inc(f"detect_cap_saturated/{name}/octave{o}")
             _LOG.warning(
                 "octave %d of %s exceeded detect_caps[%d]=%d NMS "
                 "survivors: weakest candidates dropped pre-refinement; "
@@ -140,8 +139,7 @@ def main(argv=None) -> int:
         print("corners in scene: "
               + ", ".join(f"({x:.1f},{y:.1f})" for x, y in c))
     if args.timing:
-        print("\n".join(f"{k:>24s}: {v * 1e3:9.3f} ms"
-                        for k, v in times.items()))
+        print(timer.report())
     if args.out:
         _draw(args.scene, args.object, det, args.out)
         print(f"wrote {args.out}")

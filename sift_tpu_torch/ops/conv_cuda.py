@@ -1,10 +1,14 @@
-"""K1 wrapper: separable truncated Gaussian blur, one image -> S planes.
+"""K1 and K1-batch wrappers: separable truncated Gaussian blur, one or B
+octave bases -> S planes each.
 
-Counterpart of sift_tpu/ops/conv_pallas.py. `blur_vh` launches the
-CUDA kernel (csrc/blur.cu) for a CUDA tensor and runs `blur_vh_plain`,
-the plain PyTorch version beside it, for a CPU tensor. Both sum the
-nonzero taps in tap order with a rounding after each multiply and add,
-as the Pallas kernel does, and read zeros outside the image.
+Counterpart of sift_tpu/ops/conv_pallas.py (gaussian_blur_multi_pallas
+and gaussian_blur_multi_batch_pallas, one kernel body). `blur_vh` and
+`blur_vh_batch` launch the CUDA kernel (csrc/blur.cu) for a CUDA tensor
+and run `blur_vh_plain` / `blur_vh_batch_plain`, the plain PyTorch
+versions beside them, for a CPU tensor. All sum the nonzero taps in tap
+order with a rounding after each multiply and add, as the Pallas kernel
+does, and read zeros outside the image. Each wrapper keeps its own
+launch count, so a run shows which of the two it went through.
 """
 
 from __future__ import annotations
@@ -14,26 +18,29 @@ import torch
 
 from sift_tpu_torch import _build
 
+_MAX_GRID_Z = 65535   # the kernel puts B * S planes on grid z
 
-def _check_args(x: torch.Tensor, kmat: np.ndarray) -> None:
-    if x.dtype != torch.float32 or x.dim() != 2:
-        raise ValueError(f"blur input must be (H, W) float32, got "
+
+def _check_args(x: torch.Tensor, kmat: np.ndarray, ndim: int) -> None:
+    if x.dtype != torch.float32 or x.dim() != ndim:
+        want = "(H, W)" if ndim == 2 else "(B, H, W)"
+        raise ValueError(f"blur input must be {want} float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
     if kmat.ndim != 2 or kmat.shape[1] % 2 != 1:
         raise ValueError(f"taps must be (S, odd K), got {kmat.shape}")
 
 
 def _pass_plain(x: torch.Tensor, kmat: np.ndarray, dim: int) -> torch.Tensor:
-    """(S or 1, H, W) -> (S, H, W), 1-D blur along `dim` (1 rows,
-    2 cols) with zero padding; plane s of a 1-plane input uses taps s."""
+    """(B, S or 1, H, W) -> (B, S, H, W), 1-D blur along `dim` (2 rows,
+    3 cols) with zero padding; plane s of a 1-plane input uses taps s."""
     s, k = kmat.shape
     w = k // 2
     n = x.shape[dim]
-    pad = (0, 0, w, w) if dim == 1 else (w, w, 0, 0)
+    pad = (0, 0, w, w) if dim == 2 else (w, w, 0, 0)
     p = torch.nn.functional.pad(x, pad)
     out = []
     for si in range(s):
-        src = p[0 if p.shape[0] == 1 else si]
+        src = p[:, 0 if p.shape[1] == 1 else si]
         acc = None
         for di in range(k):
             t = float(kmat[si, di])
@@ -42,40 +49,76 @@ def _pass_plain(x: torch.Tensor, kmat: np.ndarray, dim: int) -> torch.Tensor:
             term = src.narrow(dim - 1, di, n) * t
             acc = term if acc is None else acc + term
         out.append(acc)
-    return torch.stack(out)
+    return torch.stack(out, dim=1)
+
+
+def _plain(x: torch.Tensor, kmat: np.ndarray) -> torch.Tensor:
+    """(B, H, W) -> (B, S, H, W), vertical then horizontal pass."""
+    return _pass_plain(_pass_plain(x[:, None], kmat, 2), kmat, 3)
+
+
+def _launch(x: torch.Tensor, kmat: np.ndarray) -> torch.Tensor:
+    """The CUDA kernel on (B, H, W) -> (B, S, H, W)."""
+    s, k = kmat.shape
+    if s > 8 or k > 63:
+        raise ValueError(f"K1 kernel takes S <= 8, K <= 63; got {s}, {k}")
+    b, h, w = x.shape
+    if b * s > _MAX_GRID_Z:
+        raise ValueError(f"K1 kernel takes B * S <= {_MAX_GRID_Z} planes; "
+                         f"got B={b}, S={s}")
+    x = x.contiguous()
+    taps = np.ascontiguousarray(kmat, dtype=np.float32)
+    tmp = torch.empty((b, s, h, w), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, s, h, w), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().sift_blur_multi(
+            x.data_ptr(), tmp.data_ptr(), out.data_ptr(), b, h, w, s, k,
+            taps.ctypes.data, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "sift_blur_multi")
+    return out
 
 
 def blur_vh_plain(x: torch.Tensor, kmat: np.ndarray) -> torch.Tensor:
     """Plain PyTorch K1: (H, W) -> (S, H, W), vertical then horizontal
     pass with the (S, K) taps `kmat`. The caller applies the
     last-row/col quirk."""
-    _check_args(x, kmat)
-    return _pass_plain(_pass_plain(x[None], kmat, 1), kmat, 2)
+    _check_args(x, kmat, 2)
+    return _plain(x[None], kmat)[0]
 
 
 def blur_vh(x: torch.Tensor, kmat: np.ndarray) -> torch.Tensor:
     """K1: (H, W) float32 -> (S, H, W). CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    _check_args(x, kmat)
+    _check_args(x, kmat, 2)
     if x.device.type == "cpu":
         return blur_vh_plain(x, kmat)
     if x.device.type != "cuda":
         raise ValueError(f"blur_vh: unsupported device {x.device}")
-    s, k = kmat.shape
-    if s > 8 or k > 63:
-        raise ValueError(f"K1 kernel takes S <= 8, K <= 63; got {s}, {k}")
-    x = x.contiguous()
-    h, w = x.shape
-    taps = np.ascontiguousarray(kmat, dtype=np.float32)
-    tmp = torch.empty((s, h, w), dtype=torch.float32, device=x.device)
-    out = torch.empty((s, h, w), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _build.library().sift_blur_multi(
-            x.data_ptr(), tmp.data_ptr(), out.data_ptr(), h, w, s, k,
-            taps.ctypes.data, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "sift_blur_multi")
+    out = _launch(x[None], kmat)[0]
     blur_vh.launches += 1
     return out
 
 
+def blur_vh_batch_plain(x: torch.Tensor, kmat: np.ndarray) -> torch.Tensor:
+    """Plain PyTorch K1-batch: (B, H, W) -> (B, S, H, W); frame b is
+    blur_vh_plain(x[b]) (the same elementwise arithmetic)."""
+    _check_args(x, kmat, 3)
+    return _plain(x, kmat)
+
+
+def blur_vh_batch(x: torch.Tensor, kmat: np.ndarray) -> torch.Tensor:
+    """K1-batch: (B, H, W) float32 -> (B, S, H, W), one launch for all
+    frames. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    _check_args(x, kmat, 3)
+    if x.device.type == "cpu":
+        return blur_vh_batch_plain(x, kmat)
+    if x.device.type != "cuda":
+        raise ValueError(f"blur_vh_batch: unsupported device {x.device}")
+    out = _launch(x, kmat)
+    blur_vh_batch.launches += 1
+    return out
+
+
 blur_vh.launches = 0
+blur_vh_batch.launches = 0

@@ -34,7 +34,19 @@ def detect_octave(gauss: torch.Tensor, dog: torch.Tensor, octave: int,
     """
     out_cap = out_cap or cap
     layer0, r0, c0, valid0 = ext.top_candidates(dog, cap, cfg)
+    return _octave_tail(gauss, dog, layer0, r0, c0, valid0, octave, cfg,
+                        out_cap)
+
+
+def _octave_tail(gauss: torch.Tensor, dog: torch.Tensor,
+                 layer0: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
+                 valid0: torch.Tensor, octave: int, cfg: SIFTConfig,
+                 out_cap: int) -> Keypoints:
+    """Refine + orient + compact one frame's octave, given the candidate
+    scan's (cap,) output; split out of detect_octave so the batched path
+    can run the scan for all frames at once (sift_tpu/sift.py:49-99)."""
     rf = ref.refine_candidates(dog, layer0, r0, c0, valid0, cfg)
+    cap = layer0.shape[0]
 
     # mid-compaction: refinement rejects most candidates, so orientation
     # and descriptors run on out_cap slots (sift_tpu/sift.py:62-68)
@@ -81,6 +93,14 @@ def _octave_usable(shape, cfg: SIFTConfig) -> bool:
     return min(shape) >= max(2 * cfg.img_border + 3, 8)
 
 
+def _empty_octave(out_cap: int, cfg: SIFTConfig, device
+                  ) -> Tuple[Keypoints, torch.Tensor]:
+    """A too-small octave's out_cap slots: invalid keypoints and zero
+    descriptors."""
+    return Keypoints.zeros(out_cap, device), torch.zeros(
+        (out_cap, cfg.descr_size), dtype=torch.float32, device=device)
+
+
 def detect(img: torch.Tensor, cfg: SIFTConfig = DEFAULT_CONFIG
            ) -> Tuple[Keypoints, List[torch.Tensor]]:
     """Pyramid + extrema + refine + orientation on an (H, W) image.
@@ -119,7 +139,8 @@ def octave_saturation(kp: Keypoints, cfg: SIFTConfig = DEFAULT_CONFIG
     """(n_octaves,) bool: octave o's output batch is (near-)full, so the
     out_caps[o] compactions may have dropped valid keypoints. Near-full
     (within max(n/16, 4)) because orientation can invalidate a few slots
-    after the mid-compaction truncated (sift_tpu/sift.py:156-176)."""
+    after the mid-compaction truncated (sift_tpu/sift.py:156-176). Takes
+    one frame's (N,) keypoints: kp.frame(b) of a batch."""
     flags = []
     start = 0
     for o in range(cfg.n_octaves):
@@ -145,9 +166,45 @@ def detect_and_compute(img: torch.Tensor, cfg: SIFTConfig = DEFAULT_CONFIG
                                cfg.out_caps[o])
             d = desc_mod.descriptors_octave(octs[o], kp, cfg)
         else:
-            kp = Keypoints.zeros(cfg.out_caps[o], img.device)
-            d = torch.zeros((cfg.out_caps[o], cfg.descr_size),
-                            dtype=torch.float32, device=img.device)
+            kp, d = _empty_octave(cfg.out_caps[o], cfg, img.device)
         kp_parts.append(kp)
         d_parts.append(d)
     return Keypoints.concatenate(kp_parts), torch.cat(d_parts)
+
+
+def detect_and_compute_batch(imgs: torch.Tensor,
+                             cfg: SIFTConfig = DEFAULT_CONFIG
+                             ) -> Tuple[Keypoints, torch.Tensor]:
+    """Single-card throughput mode: B frames in one call.
+
+    (B, H, W) -> (Keypoints with (B, N) fields, (B, N, 128)
+    descriptors); row b equals detect_and_compute(imgs[b]). The pyramid
+    and the candidate scan run batched (K1-batch and K2-batch: one
+    launch per blur and per scan per octave for all B frames). The tail
+    -- refine, orientation, compaction, descriptors -- runs frame by
+    frame over _octave_tail and descriptors_octave, which computes what
+    sift_tpu's vmap over it computes, with each frame's arithmetic that
+    of detect_and_compute. Use kp.frame(b) for a per-frame view.
+    """
+    nb = imgs.shape[0]
+    octs = pyr.build_gaussian_pyramid_batch(imgs, cfg)
+    dogs = pyr.build_dog_pyramid_batch(octs)
+    kp_parts: List[List[Keypoints]] = [[] for _ in range(nb)]
+    d_parts: List[List[torch.Tensor]] = [[] for _ in range(nb)]
+    for o in range(cfg.n_octaves):
+        out_cap = cfg.out_caps[o]
+        if _octave_usable(octs[o].shape[2:], cfg):
+            cands = ext.top_candidates_batch(dogs[o], cfg.detect_caps[o], cfg)
+            for b in range(nb):
+                kp = _octave_tail(octs[o][b], dogs[o][b],
+                                  *(a[b] for a in cands), o, cfg, out_cap)
+                kp_parts[b].append(kp)
+                d_parts[b].append(
+                    desc_mod.descriptors_octave(octs[o][b], kp, cfg))
+        else:
+            for b in range(nb):
+                kp, d = _empty_octave(out_cap, cfg, imgs.device)
+                kp_parts[b].append(kp)
+                d_parts[b].append(d)
+    return (Keypoints.stack([Keypoints.concatenate(p) for p in kp_parts]),
+            torch.stack([torch.cat(d) for d in d_parts]))

@@ -16,7 +16,9 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class Keypoints:
-    """Padded keypoint batch. All fields are (N,) tensors.
+    """Padded keypoint batch. All fields are (N,) tensors, or (B, N) for
+    the B frames of sift.detect_and_compute_batch (`frame(b)` gives
+    frame b's (N,) view; `stack` builds the (B, N) value).
 
     x/y in base-image coordinates, size the full-resolution diameter,
     angle in degrees (the reference's 360-minus convention), response
@@ -37,7 +39,8 @@ class Keypoints:
 
     @property
     def capacity(self) -> int:
-        return self.x.shape[0]
+        """Slots per frame (the last axis)."""
+        return self.x.shape[-1]
 
     def count(self) -> torch.Tensor:
         return self.valid.sum(dtype=torch.int32)
@@ -51,6 +54,11 @@ class Keypoints:
                          valid=torch.zeros((n,), dtype=torch.bool,
                                            device=device))
 
+    def frame(self, b: int) -> "Keypoints":
+        """Frame b of a (B, N) batch, as an (N,) view."""
+        return Keypoints(**{f.name: getattr(self, f.name)[b]
+                            for f in dataclasses.fields(self)})
+
     def gather(self, idx: torch.Tensor) -> "Keypoints":
         return Keypoints(**{f.name: getattr(self, f.name)[idx]
                             for f in dataclasses.fields(self)})
@@ -59,4 +67,11 @@ class Keypoints:
     def concatenate(parts: Sequence["Keypoints"]) -> "Keypoints":
         return Keypoints(**{
             f.name: torch.cat([getattr(p, f.name) for p in parts])
+            for f in dataclasses.fields(Keypoints)})
+
+    @staticmethod
+    def stack(frames: Sequence["Keypoints"]) -> "Keypoints":
+        """B frames of (N,) fields -> one value with (B, N) fields."""
+        return Keypoints(**{
+            f.name: torch.stack([getattr(p, f.name) for p in frames])
             for f in dataclasses.fields(Keypoints)})

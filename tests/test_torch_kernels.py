@@ -17,8 +17,11 @@ from sift_tpu.ops.match_pallas import knn2_l1_pallas
 
 from sift_tpu_torch.config import DEFAULT_CONFIG as TCFG
 from sift_tpu_torch.ops.conv import stack_kernels, zero_last_row_col
-from sift_tpu_torch.ops.conv_cuda import blur_vh, blur_vh_plain
+from sift_tpu_torch.ops.conv_cuda import (blur_vh, blur_vh_batch,
+                                          blur_vh_batch_plain, blur_vh_plain)
 from sift_tpu_torch.ops.extrema_cuda import (extrema_scores,
+                                             extrema_scores_batch,
+                                             extrema_scores_batch_plain,
                                              extrema_scores_plain)
 from sift_tpu_torch.ops.ori_gather_cuda import (gather_patches,
                                                 gather_patches_plain)
@@ -142,3 +145,44 @@ def test_wrappers_raise_on_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         knn2_l1_cuda(torch.empty((2, 128), device="meta"),
                      torch.empty((3, 128), device="meta"))
+
+
+def _batch_args(rng, device="cpu"):
+    """Arguments of the two batch wrappers: 3 frames, S = 4 taps, and the
+    planted DoG stacks of 2 frames."""
+    kmat, _ = stack_kernels(TCFG.scale_sigmas()[1:])
+    imgs = torch.from_numpy((rng.random((3, 40, 48)) * 255).astype(np.float32))
+    dogs = torch.from_numpy(np.stack([_planted_dog(rng), _planted_dog(rng)]))
+    return {"blur_vh_batch": (imgs.to(device), kmat),
+            "extrema_scores_batch": (dogs.to(device), TCFG)}
+
+
+BATCH_WRAPPERS = {
+    "blur_vh_batch": (blur_vh_batch, blur_vh_batch_plain, blur_vh),
+    "extrema_scores_batch": (extrema_scores_batch, extrema_scores_batch_plain,
+                             extrema_scores),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BATCH_WRAPPERS))
+def test_batch_wrappers_take_plain_version_on_cpu(name):
+    wrapper, plain, single = BATCH_WRAPPERS[name]
+    x, arg = _batch_args(np.random.default_rng(4))[name]
+    before = (wrapper.launches, single.launches)
+    got = wrapper(x, arg)
+    assert torch.equal(got, plain(x, arg))
+    for b in range(x.shape[0]):        # frame b is the single-frame call
+        assert torch.equal(got[b], single(x[b], arg))
+    # CPU runs never count as kernel launches
+    assert before == (wrapper.launches, single.launches)
+
+
+@pytest.mark.parametrize("name", sorted(BATCH_WRAPPERS))
+def test_batch_wrappers_raise_on_other_devices(name):
+    wrapper = BATCH_WRAPPERS[name][0]
+    x, arg = _batch_args(np.random.default_rng(4), device="meta")[name]
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrapper(x, arg)
+    # a single frame is not a batch
+    with pytest.raises(ValueError, match="must be"):
+        wrapper(torch.empty(x.shape[1:]), arg)
