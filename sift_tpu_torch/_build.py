@@ -2,10 +2,12 @@
 
 All sources compile with nvcc into ONE shared library with a plain C
 interface, loaded through ctypes: seconds to build, where an extension
-that includes PyTorch's headers takes minutes. The library lands in
-build/sift_tpu_torch/<hash of the sources and flags>/ under the
-checkout, so a changed source rebuilds and an unchanged one loads the
-existing library. The build runs at first use, never at import.
+that includes PyTorch's headers takes minutes. Each source compiles in
+its own nvcc process, all started together, and one more links them.
+The library lands in build/sift_tpu_torch/<hash of the sources and
+flags>/ under the checkout, so a changed source rebuilds and an
+unchanged one loads the existing library. The build runs at first use,
+never at import.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "sift_tpu_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +39,12 @@ _SIGNATURES = {
     # dog, out, B, D, nl, H, W, thr, border, stream
     "sift_extrema_scores": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "sift_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # src, layer, row, col, radius, expf_scale, out, N, L, Hp, Wp, rp, stream
+    "sift_ori_hist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # src, layer, row, col, cos_t, sin_t, radius, ori, valid, out,
+    # N, L, Hp, Wp, rd, stream
+    "sift_descr_hist": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _P),
     "sift_knn2_l1": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
 }
 
@@ -74,18 +82,31 @@ def build() -> pathlib.Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
+    # compile into a private directory, then rename the library: a
+    # concurrent build never sees a half-written one
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        nvcc = _nvcc()
+        objs = [pathlib.Path(tmp_dir) / f"{src.stem}.o" for src in _sources()]
+        _run_all([[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        tmp_lib = pathlib.Path(tmp_dir) / lib.name
+        _run_all([[nvcc, *_FLAGS, "-shared", "-o", str(tmp_lib),
+                   *map(str, objs)]])
+        os.replace(tmp_lib, lib)
     return lib
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the output of the
+    first that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,11 +1,14 @@
-"""K3 wrapper: keypoint patch gather for orientation and descriptors.
+"""K3 wrapper: keypoint patch gather.
 
 Counterpart of sift_tpu/ops/ori_gather_pallas.py. `gather_patches`
 launches the CUDA kernel (csrc/gather.cu) for a CUDA tensor and runs
 `gather_patches_plain` for a CPU tensor. Both return, for each
 keypoint, the (patch, patch) window of the padded stack starting at
 (layer, r, c), with the starts clamped as lax.dynamic_slice clamps
-them; the two are bit-identical (a copy).
+them; the two are bit-identical (a copy). The main path reads its
+windows inside K3-ori and K3-desc (ops/ori_hist_cuda.py,
+ops/descr_hist_cuda.py), whose plain versions gather through
+`gather_patches_plain`.
 """
 
 from __future__ import annotations

@@ -8,11 +8,13 @@ cvRound(4.5*scl_octv) window, Gaussian-weighted with sigma
 >= 0.8*globalmax spawns an orientation with parabolic sub-bin
 interpolation, at most max_ori_peaks per keypoint.
 
-Each keypoint takes one fixed max-radius patch through K3
-(ops/ori_gather_cuda.py) and masks the samples outside its own radius
-or the image interior. The histogram is a one-hot contraction (the
-JAX package's "onehot_t" math), not a scatter: float atomics would
-make GPU results change from run to run.
+K3-ori (ops/ori_hist_cuda.py) turns each keypoint's window into its
+raw 36-bin histogram, one launch per octave on the card; on the CPU
+its plain version gathers one fixed max-radius patch per keypoint,
+masks the samples outside its radius or the image interior, and
+contracts one-hots (the JAX package's "onehot_t" math). Neither uses
+float atomics, so results do not change from run to run. The
+per-keypoint parameters are computed here, once, for both.
 """
 
 from __future__ import annotations
@@ -25,19 +27,21 @@ import torch.nn.functional as F
 
 from sift_tpu_torch.config import SIFTConfig, DEFAULT_CONFIG
 from sift_tpu_torch.ops.extrema import stable_top_k
-from sift_tpu_torch.ops.mathutil import fast_atan2_deg, cv_round
-from sift_tpu_torch.ops.ori_gather_cuda import gather_patches
+from sift_tpu_torch.ops.mathutil import cv_round
+from sift_tpu_torch.ops.ori_hist_cuda import orientation_hist
 
 _FLT_EPS = float(np.float32(1.1920929e-07))
 
 
-def hist_onehot(contrib: torch.Tensor, bins: torch.Tensor,
-                n: int) -> torch.Tensor:
-    """(N, P) contributions into (N, P) bin indices -> (N, n) weighted
-    histograms, as one-hot (N, n, P) @ (N, P, 1)."""
-    onehot = (torch.arange(n, device=bins.device)[None, :, None]
-              == bins[:, None, :]).to(torch.float32)
-    return torch.bmm(onehot, contrib[:, :, None])[:, :, 0]
+def orientation_params(scl_octv: torch.Tensor,
+                       cfg: SIFTConfig = DEFAULT_CONFIG
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-keypoint values of calcOrientationHist
+    (src/sift.cpp:389-400): (N,) octave scale -> (radius int32,
+    expf_scale = -1 / (2 sigma^2))."""
+    radius = cv_round(cfg.ori_radius_fctr * scl_octv)
+    sigma = cfg.ori_sig_fctr * scl_octv
+    return radius, -1.0 / (2.0 * sigma * sigma)
 
 
 def orientation_peaks(gauss: torch.Tensor,
@@ -54,41 +58,11 @@ def orientation_peaks(gauss: torch.Tensor,
     n = cfg.ori_hist_bins
     rp = cfg.ori_patch_radius
     nl = cfg.n_octave_layers
-    h, w = gauss.shape[1], gauss.shape[2]
     pad = rp + 1
     # refined keypoints sit on layers 1..nl (refine clamps, sift.cpp:332)
     padded = F.pad(gauss[1:1 + nl], (pad, pad, pad, pad))
-    # one max-radius patch per keypoint; pixel (r, c) lands at
-    # patch[rp+1, rp+1]
-    patches = gather_patches(padded, layer - 1, r, c, 2 * rp + 3)
-
-    off = torch.arange(-rp, rp + 1, dtype=torch.int32, device=gauss.device)
-    ii = off[None, :, None]                   # row offsets
-    jj = off[None, None, :]                   # col offsets
-    r2_grid = (ii * ii + jj * jj).to(torch.float32)
-
-    dx = patches[:, 1:-1, 2:] - patches[:, 1:-1, :-2]
-    dy = patches[:, :-2, 1:-1] - patches[:, 2:, 1:-1]
-
-    scl = scl_octv[:, None, None]
-    radius = cv_round(cfg.ori_radius_fctr * scl)
-    sigma = cfg.ori_sig_fctr * scl
-    expf_scale = -1.0 / (2.0 * sigma * sigma)
-
-    yy = r[:, None, None] + ii
-    xx = c[:, None, None] + jj
-    m = ((ii.abs() <= radius) & (jj.abs() <= radius)
-         & (yy > 0) & (yy < h - 1) & (xx > 0) & (xx < w - 1))
-    wgt = torch.exp(r2_grid * expf_scale)
-    mag = torch.sqrt(dx * dx + dy * dy)
-    ori = fast_atan2_deg(dy, dx)
-    contrib = torch.where(m, wgt * mag, 0.0)
-
-    bins = cv_round((n / 360.0) * ori)
-    bins = torch.where(bins >= n, bins - n, bins)
-    bins = torch.where(bins < 0, bins + n, bins)
-    k = r.shape[0]
-    hist = hist_onehot(contrib.reshape(k, -1), bins.reshape(k, -1), n)
+    radius, expf_scale = orientation_params(scl_octv, cfg)
+    hist = orientation_hist(padded, layer - 1, r, c, radius, expf_scale, cfg)
 
     # circular (1,4,6,4,1)/16 smoothing (src/sift.cpp:440-451)
     sm = (hist.roll(2, 1) + hist.roll(-2, 1)) * (1.0 / 16.0) \

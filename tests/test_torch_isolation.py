@@ -46,7 +46,7 @@ def test_kernel_launches_have_no_fallback():
     launching = [s for s in SOURCES if "_build.library()" in s.read_text()]
     assert {s.name for s in launching} == {
         "conv_cuda.py", "extrema_cuda.py", "ori_gather_cuda.py",
-        "match_cuda.py"}
+        "ori_hist_cuda.py", "descr_hist_cuda.py", "match_cuda.py"}
     for src in launching:
         assert not re.search(r"^\s*try\s*:", src.read_text(), re.M), src
         assert ".launches += 1" in src.read_text()
@@ -54,8 +54,14 @@ def test_kernel_launches_have_no_fallback():
 
 def test_every_kernel_has_a_cuda_source():
     names = {p.name for p in (PKG / "csrc").glob("*.cu")}
-    assert names == {"blur.cu", "extrema.cu", "gather.cu", "knn2.cu"}
+    assert names == {"blur.cu", "extrema.cu", "gather.cu", "ori_hist.cu",
+                     "descr_hist.cu", "knn2.cu"}
+    entries = set()
     for p in (PKG / "csrc").glob("*.cu"):
         text = p.read_text()
         assert "sift_tpu/ops/" in text and "_pallas.py" in text, p
         assert 'extern "C"' in text and "cudaGetLastError" in text, p
+        entries |= set(re.findall(r'extern "C" int (\w+)\(', text))
+    # ctypes binds exactly the C entry points the sources define
+    from sift_tpu_torch import _build
+    assert entries == set(_build._SIGNATURES)

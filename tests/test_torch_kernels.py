@@ -25,6 +25,12 @@ from sift_tpu_torch.ops.extrema_cuda import (extrema_scores,
                                              extrema_scores_plain)
 from sift_tpu_torch.ops.ori_gather_cuda import (gather_patches,
                                                 gather_patches_plain)
+from sift_tpu_torch.ops.descr_hist_cuda import (descriptor_hist,
+                                                descriptor_hist_plain)
+from sift_tpu_torch.ops.ori_hist_cuda import (orientation_hist,
+                                              orientation_hist_plain)
+from sift_tpu_torch.ops import descriptor as tdesc
+from sift_tpu_torch.ops import orientation as tori
 from sift_tpu_torch.ops.match import mask_train
 from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda, knn2_l1_plain
 
@@ -186,3 +192,58 @@ def test_batch_wrappers_raise_on_other_devices(name):
     # a single frame is not a batch
     with pytest.raises(ValueError, match="must be"):
         wrapper(torch.empty(x.shape[1:]), arg)
+
+
+def _fused_hist_args(rng, device="cpu"):
+    """Arguments of the two fused-histogram wrappers: a 2-layer stack
+    padded for each, 6 keypoints (two with starts outside the image), and
+    their per-keypoint parameters."""
+    h, w = 40, 48
+    img = torch.from_numpy((rng.random((2, h, w)) * 255).astype(np.float32))
+    layer = torch.tensor([0, 1, 1, 0, -1, 2], dtype=torch.int32)
+    r = torch.tensor([20, 10, 30, 25, -4, h + 3], dtype=torch.int32)
+    c = torch.tensor([24, 30, 12, 40, w + 2, -6], dtype=torch.int32)
+    scl = torch.from_numpy(rng.uniform(1.6, 2.5, 6).astype(np.float32))
+    angle = torch.from_numpy(rng.uniform(0, 360, 6).astype(np.float32))
+    valid = torch.tensor([True, True, False, True, True, True])
+    rp, rd = TCFG.ori_patch_radius, TCFG.descr_patch_radius
+    radius, expf = tori.orientation_params(scl, TCFG)
+    prm = tdesc.descriptor_params(2 * scl, angle, torch.ones(1), (h, w), TCFG)
+    ori = (torch.nn.functional.pad(img, (rp + 1,) * 4), layer, r, c, radius,
+           expf, TCFG)
+    desc = (torch.nn.functional.pad(img, (rd + 1,) * 4), layer, r, c,
+            prm.cos_t, prm.sin_t, prm.radius, prm.ori, valid, TCFG)
+    return {name: tuple(a.to(device) if torch.is_tensor(a) else a
+                        for a in args)
+            for name, args in (("orientation_hist", ori),
+                               ("descriptor_hist", desc))}
+
+
+FUSED_HIST_WRAPPERS = {
+    "orientation_hist": (orientation_hist, orientation_hist_plain),
+    "descriptor_hist": (descriptor_hist, descriptor_hist_plain),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_HIST_WRAPPERS))
+def test_fused_hist_wrappers_take_plain_version_on_cpu(name):
+    wrapper, plain = FUSED_HIST_WRAPPERS[name]
+    args = _fused_hist_args(np.random.default_rng(6))[name]
+    before = wrapper.launches
+    got = wrapper(*args)
+    assert torch.equal(got, plain(*args))
+    assert got.any()
+    # CPU runs never count as kernel launches
+    assert before == wrapper.launches
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_HIST_WRAPPERS))
+def test_fused_hist_wrappers_raise_on_other_devices(name):
+    wrapper = FUSED_HIST_WRAPPERS[name][0]
+    args = _fused_hist_args(np.random.default_rng(6), device="meta")[name]
+    with pytest.raises(ValueError, match="unsupported device"):
+        wrapper(*args)
+    # a stack not padded for the windows is refused on any device
+    cpu = _fused_hist_args(np.random.default_rng(6))[name]
+    with pytest.raises(ValueError, match="not padded"):
+        wrapper(cpu[0][:, :20, :20], *cpu[1:])
