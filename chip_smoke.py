@@ -10,13 +10,23 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      TF32 off, so the plain versions are full-float32 references;
   1. build of the kernel library (seconds);
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, with the CPU tests' tolerances, and both timed
-     (median over 20 runs, CUDA events) beside the least time the card
-     could take (bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s,
-     the larger) and, for K1 and K1-batch, one cuDNN convolution that
-     computes the same blur (no single PyTorch call computes the other
-     kernels' functions); K1-batch and K2-batch at B = 8 1080p frames, each frame
-     also equal to the single-frame kernel; K3-ori and K3-desc on octave
+     main path's shapes, and both timed (median device time over 20
+     runs, CUDA events, each run queued behind a spin kernel that hides
+     the host's launch overhead) beside the least time the card could
+     take (bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s, the
+     larger; K4's subtractions and adds, which have no FMA form, at the
+     33.5 T/s issue rate) and, for K1 and K1-batch, one cuDNN
+     convolution that computes the same blur (no single PyTorch call
+     computes the other kernels' functions); K1, K1-batch, K2, K2-batch,
+     K3 and K4 bit for bit (torch.equal), K1 at every shape
+     detect_object launches it and K1-batch at every shape of the B = 8
+     batch step, with their sums per detect_object and per batch step;
+     K1-batch and K2-batch at B = 8 1080p frames, each frame also equal
+     to the single-frame kernel; K1 and K1-batch also at widths that are
+     not a multiple of 4 and on an input 4 bytes off a 16-byte boundary;
+     K4 with tied duplicate rows in different train splits, and also on
+     rows 4 bytes off, at ragged N and M, M = 1 and M = 0; K3-ori and
+     K3-desc on octave
      0 of the 1080p scene with its real keypoints plus slots whose
      windows start outside the image, within rtol 1e-5 and
      atol 1e-5 * max|hist| per row of their plain versions on valid rows
@@ -66,6 +76,13 @@ KERNELS = ("K1", "K1-batch", "K2", "K2-batch", "K3", "K3-ori", "K3-desc",
            "K4")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# The 67 TFLOP/s count an FMA as two operations. An operation with no
+# FMA form (K4's subtraction, and its add of an absolute value) issues
+# at half that: 132 SMs x 128 lanes x 1.98 GHz = 33.5e12 instructions/s.
+F32_ISSUE_PER_S = 33.5e12
+# torch.cuda._sleep spins for a count of clock cycles; at most 1.98 GHz
+# on the H100, so a count of seconds x 2e9 spins at least that long
+SPIN_CYCLES_PER_S = 2.0e9
 # float32 operations per binned sample, counted in csrc/ori_hist.cu and
 # csrc/descr_hist.cu (expf, sqrtf and a division counted as one each)
 ORI_OPS_PER_SAMPLE = 26
@@ -245,15 +262,27 @@ def _same(a, b):
 
 # ----------------------------------------------------------------- phases
 
-def median_ms(fn, runs: int = TIMING_RUNS) -> float:
-    """Median device time of fn() over `runs` calls (CUDA events)."""
+def median_ms(fn, runs: int = TIMING_RUNS, queued: bool = True) -> float:
+    """Median time of fn() over `runs` calls (CUDA events). With queued,
+    each call is queued behind a spin kernel that outlasts twice its
+    host-side enqueue, so the events time the device's work back to back
+    and not the host's launch overhead; without it, the events start on
+    an idle card, so a call whose host side outlasts its kernels is timed
+    with that host side (tools/torch_kernel_times.py reports both)."""
     import torch
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int((2.0 * host_s + 1e-3) * SPIN_CYCLES_PER_S)
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(cycles)
         start.record()
         fn()
         end.record()
@@ -270,11 +299,12 @@ def batch_frames(scene):
                         for i in range(BATCH)])
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple:
     """(least time in ms, "bytes" or "operations"): the larger of the
-    bytes at the HBM rate and the float32 operations at the peak rate."""
+    bytes at the HBM rate and the float32 operations at ops_per_s."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -321,12 +351,166 @@ def window_bound(shape, p: int, rad: int, layer, r, c, radius, keep,
                     ops_per_sample * samples)
 
 
-def phase_kernels(scene_np: np.ndarray) -> dict:
+def blur_launches(img, octs, batched: bool, cfg) -> list:
+    """(label, input, taps) of each K1 (or K1-batch) launch of one
+    pyramid: the S=1 base blur of the frame(s), then the S=4 blur of
+    each octave's base, with the last-row/col quirk applied as
+    ops/conv.py applies it."""
+    from sift_tpu_torch.ops import conv
+    kbase, _ = conv.stack_kernels((cfg.init_blur_sigma,))
+    koct, _ = conv.stack_kernels(cfg.scale_sigmas()[1:])
+    out = [("base S=1", conv.zero_last_row_col(img), kbase)]
+    for o, oct_ in enumerate(octs):
+        base = oct_[:, 0] if batched else oct_[0]
+        out.append((f"octave {o} S=4", conv.zero_last_row_col(base), koct))
+    return out
+
+
+def offset_copy(x):
+    """A copy of x whose data starts 4 bytes past a 16-byte boundary
+    (a fresh allocation is aligned), so the kernels' 16-byte copies may
+    not run on it."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    check(y.data_ptr() % 16 == 4, "offset_copy: not 4 bytes off")
+    return y
+
+
+def phase_blur_edges(cfg) -> None:
+    """K1 and K1-batch where rows are not staged in 16-byte pieces:
+    widths that are not a multiple of 4 (octave 1 of a 1366x768 frame is
+    384x683), and an input 4 bytes off a 16-byte boundary; at S=1 and
+    S=4, large (all scales per block) and small (scales split over the
+    grid); bit for bit against the plain versions, each K1-batch frame
+    also against K1 on it."""
+    import torch
+    from sift_tpu_torch.ops import conv
+    from sift_tpu_torch.ops.conv_cuda import (blur_vh, blur_vh_batch,
+                                              blur_vh_batch_plain,
+                                              blur_vh_plain)
+    rng = np.random.default_rng(5)
+    taps = [conv.stack_kernels((cfg.init_blur_sigma,))[0],
+            conv.stack_kernels(cfg.scale_sigmas()[1:])[0]]
+    done = []
+    for shape, misaligned in (((1, 1079, 1917), False), ((2, 384, 683), False),
+                              ((3, 67, 121), False), ((2, 1080, 1920), True)):
+        x = conv.zero_last_row_col(torch.from_numpy(
+            (rng.random(shape) * 255).astype(np.float32)).cuda())
+        if misaligned:
+            x = offset_copy(x)
+        for kmat in taps:
+            got = blur_vh_batch(x, kmat)
+            check(torch.equal(got, blur_vh_batch_plain(x, kmat)),
+                  f"K1-batch {shape} S={len(kmat)} (misaligned {misaligned}) "
+                  f"is not bit-identical to its plain version")
+            for b in range(shape[0]):
+                one = blur_vh(x[b], kmat)
+                check(torch.equal(one, blur_vh_plain(x[b], kmat))
+                      and torch.equal(got[b], one),
+                      f"K1 {shape[1:]} S={len(kmat)} (misaligned "
+                      f"{misaligned}): not bit-identical to its plain "
+                      f"version or to K1-batch's frame {b}")
+        done.append(f"{shape}{' 4 bytes off' if misaligned else ''}")
+    torch.cuda.synchronize()
+    print(f"phase 2 K1/K1-batch edge cases at S=1 and S=4: {', '.join(done)}"
+          f": bit-identical to the plain versions, each frame equals K1")
+
+
+def knn_inputs(rng, n: int, m: int, dev):
+    """K4's phase-2 query and (masked) train rows: random rows, 20 %
+    masked, with tied duplicates within a split (rows j and j + 100) and
+    across splits (rows j and j + M/2), and queries 0..79 equal to train
+    rows 0..79."""
+    import torch
+    from sift_tpu_torch.ops.match import mask_train
+    q = torch.from_numpy((rng.random((n, 128)) * 0.3).astype(np.float32))
+    t = torch.from_numpy((rng.random((m, 128)) * 0.3).astype(np.float32))
+    t[100:140] = t[0:40]
+    t[m // 2 + 40:m // 2 + 80] = t[40:80]
+    q[0:80] = t[0:80]
+    valid = torch.from_numpy(rng.random(m) > 0.2)
+    for rows in (slice(0, 80), slice(100, 140),
+                 slice(m // 2 + 40, m // 2 + 80)):
+        valid[rows] = True
+    return q.to(dev), mask_train(t.to(dev), valid.to(dev))
+
+
+def phase_knn_edges(q, tm) -> str:
+    """K4 on cuts of its phase-2 inputs that the 1536 x 1536 check does
+    not reach: rows 4 bytes off a 16-byte boundary (the wrapper copies
+    them), ragged N and M, M = 1 and M = 0; idx, d1 and d2 bit for bit
+    against the plain version. Returns what was checked."""
+    import torch
+    from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda, knn2_l1_plain
+    cases = [("4 bytes off", offset_copy(q), offset_copy(tm), q, tm)]
+    for n, m in ((100, 777), (64, 1), (64, 0)):
+        cases.append((f"{n}x{m}", q[:n], tm[:m], q[:n], tm[:m]))
+    for label, qk, tk, qp, tp in cases:
+        got, want = knn2_l1_cuda(qk, tk), knn2_l1_plain(qp, tp)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"K4 {label} is not bit-identical to its plain version")
+    torch.cuda.synchronize()
+    return ", ".join(c[0] for c in cases)
+
+
+def phase_blur(name, wrapper, plain, launches, per, single=None) -> list:
+    """K1 or K1-batch at each of `launches` (see blur_launches): bit for
+    bit against the plain version (and, for K1-batch, each frame
+    against the single-frame `single`), timed; the cuDNN yardstick at
+    the 1080p shapes. Returns [(label, shape, err, ms, plain_ms, bound,
+    library_ms)] and prints the sums over the launches of one `per`."""
+    import torch
+    rows = []
+    for label, x, kmat in launches:
+        got, want = wrapper(x, kmat), plain(x, kmat)
+        torch.cuda.synchronize()
+        shape = tuple(x.shape)
+        check(torch.equal(got, want),
+              f"{name} {label} {shape} is not bit-identical to its plain "
+              f"version")
+        if single is not None:
+            check(all(torch.equal(got[b], single(x[b], kmat))
+                      for b in range(x.shape[0])),
+                  f"{name} {label} {shape}: a frame differs from K1 on it")
+        err = float((got - want).abs().max())
+        del got
+        ms = median_ms(lambda: wrapper(x, kmat))
+        pms = median_ms(lambda: plain(x, kmat))
+        bnd = blur_bound(x.shape, kmat)
+        lms, lib_note = None, ""
+        if x.shape[-2:] == SCENE_HW and label in ("base S=1",
+                                                  "octave 0 S=4"):
+            lib = blur_library(x, kmat)
+            lerr = float((lib() - want).abs().max())
+            lms = median_ms(lib)
+            lib_note = (f", library conv2d {lms:.4f} ms (max diff from "
+                        f"plain {lerr!r})")
+        del want
+        rows.append((label, shape, err, ms, pms, bnd, lms))
+        print(f"phase 2 {name} blur {label} {shape}: max_abs_err={err!r} "
+              f"(bit-identical{', each frame equals K1' if single else ''}"
+              f") kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}){lib_note}")
+    print_sums(f"{name} per {per}", rows)
+    return rows
+
+
+def print_sums(what, rows) -> None:
+    """The kernel, plain and bound ms of phase_blur's rows, summed."""
+    print(f"phase 2 {what} ({len(rows)} launches): kernel "
+          f"{sum(r[3] for r in rows):.4f} ms, plain "
+          f"{sum(r[4] for r in rows):.4f} ms, bound "
+          f"{sum(r[5][0] for r in rows):.4f} ms")
+
+
+def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray) -> dict:
     """Phase 2: each kernel against its plain version at main-path shapes."""
     import torch
     from sift_tpu_torch import sift
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
-    from sift_tpu_torch.ops import conv, pyramid
+    from sift_tpu_torch.ops import pyramid
     from sift_tpu_torch.ops.conv_cuda import (blur_vh, blur_vh_batch,
                                               blur_vh_batch_plain,
                                               blur_vh_plain)
@@ -336,13 +520,16 @@ def phase_kernels(scene_np: np.ndarray) -> dict:
                                                  extrema_scores_plain)
     from sift_tpu_torch.ops.ori_gather_cuda import (gather_patches,
                                                     gather_patches_plain)
-    from sift_tpu_torch.ops.match import mask_train
-    from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda, knn2_l1_plain
+    from sift_tpu_torch.ops.match_cuda import (knn2_l1_cuda, knn2_l1_plain,
+                                               launch_plan)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     img = torch.from_numpy(scene_np).to(dev)
+    img_obj = torch.from_numpy(obj_np).to(dev)
     frames = batch_frames(img)
+    octs = pyramid.build_gaussian_pyramid(img, cfg)
+    octsb = pyramid.build_gaussian_pyramid_batch(frames, cfg)
     report = {}
 
     def record(key, name, src, replaces, err, ms, plain_ms, bound,
@@ -353,66 +540,38 @@ def phase_kernels(scene_np: np.ndarray) -> dict:
                        "bound_ms": bound[0], "bound_by": bound[1],
                        "library_ms": library_ms}
 
-    # K1 at 1080p, S=1 (base) and S=4 (octave 0)
-    x = conv.zero_last_row_col(img)
-    k1 = []
-    for sig in ((cfg.init_blur_sigma,), cfg.scale_sigmas()[1:]):
-        kmat, _ = conv.stack_kernels(sig)
-        got, want = blur_vh(x, kmat), blur_vh_plain(x, kmat)
-        torch.cuda.synchronize()
-        check(torch.allclose(got, want, rtol=1e-5, atol=1e-3),
-              f"K1 S={len(sig)} disagrees with its plain version")
-        err = float((got - want).abs().max())
-        lib = blur_library(x, kmat)
-        lerr = float((lib() - want).abs().max())
-        ms = median_ms(lambda: blur_vh(x, kmat))
-        pms = median_ms(lambda: blur_vh_plain(x, kmat))
-        lms = median_ms(lib)
-        bnd = blur_bound(x.shape, kmat)
-        k1.append((len(sig), err, ms, pms, bnd, lms))
-        print(f"phase 2 K1 blur 1080x1920 S={len(sig)}: max_abs_err={err!r} "
-              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-              f"{bnd[0]:.4f} ms ({bnd[1]}), library conv2d {lms:.4f} ms "
-              f"(max diff from plain {lerr!r})")
-    record("K1", "K1 separable Gaussian blur", "sift_tpu_torch/csrc/blur.cu",
-           "sift_tpu/ops/conv_pallas.py:92", max(e[1] for e in k1),
-           *k1[1][2:])
+    def main_row(rows):
+        """ms, plain ms, bound and library ms at the 1080p octave 0"""
+        row = next(r for r in rows
+                   if r[0] == "octave 0 S=4" and r[1][-2:] == SCENE_HW)
+        return row[3:]
 
-    # K1-batch on 8 frames at 1080p, S=1 and S=4; each frame must also be
-    # the single-frame K1 on it, bit for bit
-    xb = conv.zero_last_row_col(frames)
-    k1b = []
-    for sig in ((cfg.init_blur_sigma,), cfg.scale_sigmas()[1:]):
-        kmat, _ = conv.stack_kernels(sig)
-        got, want = blur_vh_batch(xb, kmat), blur_vh_batch_plain(xb, kmat)
-        torch.cuda.synchronize()
-        check(torch.allclose(got, want, rtol=1e-5, atol=1e-3),
-              f"K1-batch S={len(sig)} disagrees with its plain version")
-        check(all(torch.equal(got[b], blur_vh(xb[b], kmat))
-                  for b in range(BATCH)),
-              f"K1-batch S={len(sig)}: a frame differs from K1 on it")
-        err = float((got - want).abs().max())
-        lib = blur_library(xb, kmat)
-        lerr = float((lib() - want).abs().max())
-        del got, want
-        ms = median_ms(lambda: blur_vh_batch(xb, kmat))
-        pms = median_ms(lambda: blur_vh_batch_plain(xb, kmat))
-        lms = median_ms(lib)
-        bnd = blur_bound(xb.shape, kmat)
-        k1b.append((len(sig), err, ms, pms, bnd, lms))
-        print(f"phase 2 K1-batch blur {tuple(xb.shape)} S={len(sig)}: "
-              f"max_abs_err={err!r} (each frame equals K1) kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
-              f"({bnd[1]}), library conv2d {lms:.4f} ms (max diff from "
-              f"plain {lerr!r})")
+    # K1 at each launch of detect_object: the 1080p scene's and the
+    # 480x640 object's base blur and five octaves; the JSON row is the
+    # 1080p octave 0 (S=4)
+    k1 = (phase_blur("K1", blur_vh, blur_vh_plain,
+                     blur_launches(img, octs, False, cfg), "scene")
+          + phase_blur("K1", blur_vh, blur_vh_plain,
+                       blur_launches(img_obj, pyramid.build_gaussian_pyramid(
+                           img_obj, cfg), False, cfg), "object"))
+    print_sums("K1 per detect_object", k1)
+    record("K1", "K1 separable Gaussian blur", "sift_tpu_torch/csrc/blur.cu",
+           "sift_tpu/ops/conv_pallas.py:92", max(r[2] for r in k1),
+           *main_row(k1))
+
+    # K1-batch at each launch of the B = 8 batch step; each frame must
+    # also be the single-frame K1 on it, bit for bit
+    k1b = phase_blur("K1-batch", blur_vh_batch, blur_vh_batch_plain,
+                     blur_launches(frames, octsb, True, cfg), "batch step",
+                     single=blur_vh)
     record("K1-batch", "K1-batch separable Gaussian blur, B frames",
            "sift_tpu_torch/csrc/blur.cu", "sift_tpu/ops/conv_pallas.py:173",
-           max(e[1] for e in k1b), *k1b[1][2:])
+           max(r[2] for r in k1b), *main_row(k1b))
+    phase_blur_edges(cfg)
 
     # K2 on the (4, 1080, 1920) DoG of the synthetic frame: read the DoG,
     # write nL score planes; a threshold test and 26 neighbour tests per
     # score
-    octs = pyramid.build_gaussian_pyramid(img, cfg)
     dogs = pyramid.build_dog_pyramid(octs)
     dog = dogs[0].contiguous()
     nl = cfg.n_octave_layers
@@ -431,8 +590,8 @@ def phase_kernels(scene_np: np.ndarray) -> dict:
            "sift_tpu/ops/extrema_pallas.py:90", err, ms, pms, bnd)
 
     # K2-batch on the (8, 4, 1080, 1920) DoG of the eight frames
-    dogb = pyramid.build_dog_pyramid_batch(
-        pyramid.build_gaussian_pyramid_batch(frames, cfg))[0].contiguous()
+    dogb = pyramid.build_dog_pyramid_batch(octsb)[0].contiguous()
+    del octsb
     got = extrema_scores_batch(dogb, cfg)
     want = extrema_scores_batch_plain(dogb, cfg)
     torch.cuda.synchronize()
@@ -454,7 +613,7 @@ def phase_kernels(scene_np: np.ndarray) -> dict:
     record("K2-batch", "K2-batch DoG extrema scores, B frames",
            "sift_tpu_torch/csrc/extrema.cu",
            "sift_tpu/ops/extrema_pallas.py:167", err, ms, pms, bnd)
-    del dogb, xb
+    del dogb
 
     # K3: p=39 with N=1024 (orientation), p=85 with N=64 and N=1024; a
     # copy: each window read once and written once
@@ -487,31 +646,33 @@ def phase_kernels(scene_np: np.ndarray) -> dict:
                             cfg.out_caps[0])
     phase_fused_hist(octs[0], kp, rng, record)
 
-    # K4 at 1536 x 1536 with sentinel rows and tied duplicates; one
-    # subtraction and one absolute add per pair and dimension
+    # K4 at 1536 x 1536 with sentinel rows and tied duplicates, within a
+    # split and across splits; one subtraction and one absolute add per
+    # pair and dimension, which have no FMA form, at the instruction
+    # issue rate
     n = m = sum(cfg.out_caps)
-    q = torch.from_numpy((rng.random((n, 128)) * 0.3).astype(np.float32))
-    t = torch.from_numpy((rng.random((m, 128)) * 0.3).astype(np.float32))
-    t[100:140] = t[0:40]
-    q[0:40] = t[0:40]
-    valid = torch.from_numpy(rng.random(m) > 0.2)
-    q, t, valid = q.to(dev), t.to(dev), valid.to(dev)
-    tm = mask_train(t, valid)
+    q, tm = knn_inputs(rng, n, m, dev)
     gi, g1, g2 = knn2_l1_cuda(q, tm)
     wi, w1, w2 = knn2_l1_plain(q, tm)
     torch.cuda.synchronize()
-    clear = (w2 - w1) > 1e-4
-    check(torch.equal(gi[clear], wi[clear]), "K4 best index disagrees")
-    check(torch.allclose(g1, w1, rtol=1e-6) and torch.allclose(g2, w2,
-                                                               rtol=1e-6),
-          "K4 distances disagree")
+    check(torch.equal(gi, wi) and torch.equal(g1, w1) and torch.equal(g2, w2),
+          "K4 is not bit-identical to its plain version")
+    check(torch.equal(gi[0:80].cpu(), torch.arange(80, dtype=torch.int32))
+          and bool((g2[0:80] == 0).all()),
+          "K4: a tied duplicate did not resolve to the lowest row")
     err = float(torch.maximum((g1 - w1).abs().max(), (g2 - w2).abs().max()))
+    edges = phase_knn_edges(q, tm)
+    p, span = launch_plan(n, m, q.device)
     ms = median_ms(lambda: knn2_l1_cuda(q, tm))
     pms = median_ms(lambda: knn2_l1_plain(q, tm))
-    bnd = bound_ms(4.0 * (n + m) * 128 + 12 * n, 2.0 * n * m * 128)
-    print(f"phase 2 K4 top-2 L1 {n}x{m}: idx equal on {int(clear.sum())}/{n} "
-          f"clear rows, max_abs_err={err!r} kernel {ms:.4f} ms, "
-          f"plain {pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    bnd = bound_ms(4.0 * (n + m) * 128 + 12 * n, 2.0 * n * m * 128,
+                   F32_ISSUE_PER_S)
+    print(f"phase 2 K4 top-2 L1 {n}x{m}: {p} train splits of {span} rows, "
+          f"idx, d1 and d2 bit-identical on all {n} rows (80 with a tied "
+          f"duplicate, 40 across splits) and at {edges}, "
+          f"max_abs_err={err!r} kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})")
     record("K4", "K4 top-2 L1 matcher", "sift_tpu_torch/csrc/knn2.cu",
            "sift_tpu/ops/match_pallas.py:83", err, ms, pms, bnd)
     return report
@@ -857,7 +1018,7 @@ def main() -> int:
           f"{lib.relative_to(lib.parents[3])}")
 
     scene, obj, true = full_size_inputs()
-    report = phase_kernels(scene)
+    report = phase_kernels(scene, obj)
     phase_cpu_vs_card()
     pair_fps = phase_main_path(scene, obj, true, report)
     phase_batch(scene, report, pair_fps)

@@ -34,8 +34,9 @@ _F = ctypes.c_float
 # cudaError_t of its launch as an int. ctypes does not check these
 # against the C functions, so they must change with the sources.
 _SIGNATURES = {
-    # img, tmp, out, B, H, W, S, K, taps, stream
-    "sift_blur_multi": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # img, out, B, H, W, S, K, taps, ranges (per-scale nonzero taps),
+    # stream
+    "sift_blur_multi": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # dog, out, B, D, nl, H, W, thr, border, stream
     "sift_extrema_scores": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "sift_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -45,7 +46,10 @@ _SIGNATURES = {
     # N, L, Hp, Wp, rd, stream
     "sift_descr_hist": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _P),
-    "sift_knn2_l1": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # query, train, N, M, D, P, span (P train splits of span rows),
+    # part_d1, part_d2, part_idx ((P, N) scratch), idx, d1, d2, stream
+    "sift_knn2_l1": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                     _P),
 }
 
 

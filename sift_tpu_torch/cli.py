@@ -96,10 +96,10 @@ def main(argv=None) -> int:
 
     cfg = dataclasses.replace(DEFAULT_CONFIG, match_ratio=args.ratio)
     with timer.stage("pipeline(first run)"):
-        det = detect_object(scene, obj, cfg=cfg)
+        det = detect_object(scene, obj, cfg=cfg, device=device)
         timer.sink(det.corners)
     with timer.stage("pipeline(steady)"):
-        det = detect_object(scene, obj, cfg=cfg)
+        det = detect_object(scene, obj, cfg=cfg, device=device)
         timer.sink(det.corners)
 
     # a (near-)full octave batch means out_caps may have truncated (the

@@ -7,8 +7,10 @@ and gaussian_blur_multi_batch_pallas, one kernel body). `blur_vh` and
 and run `blur_vh_plain` / `blur_vh_batch_plain`, the plain PyTorch
 versions beside them, for a CPU tensor. All sum the nonzero taps in tap
 order with a rounding after each multiply and add, as the Pallas kernel
-does, and read zeros outside the image. Each wrapper keeps its own
-launch count, so a run shows which of the two it went through.
+does, and read zeros outside the image. The kernel loops over each
+scale's range of nonzero taps (`tap_ranges`), which must hold no zero.
+Each wrapper keeps its own launch count, so a run shows which of the
+two it went through.
 """
 
 from __future__ import annotations
@@ -18,7 +20,10 @@ import torch
 
 from sift_tpu_torch import _build
 
-_MAX_GRID_Z = 65535   # the kernel puts B * S planes on grid z
+_MAX_GRID_Z = 65535   # the kernel puts the B frames on grid z
+# (shape, dtype, bytes) of a taps matrix -> (its float32 copy, its tap
+# ranges): a config stacks the same two or three matrices on every call
+_PREPARED: dict = {}
 
 
 def _check_args(x: torch.Tensor, kmat: np.ndarray, ndim: int) -> None:
@@ -28,6 +33,32 @@ def _check_args(x: torch.Tensor, kmat: np.ndarray, ndim: int) -> None:
                          f"{tuple(x.shape)} {x.dtype}")
     if kmat.ndim != 2 or kmat.shape[1] % 2 != 1:
         raise ValueError(f"taps must be (S, odd K), got {kmat.shape}")
+
+
+def tap_ranges(kmat: np.ndarray) -> np.ndarray:
+    """(S, 2) int32: the first and last nonzero tap of each scale of the
+    (S, K) taps, the range the kernel sums over. Raises ValueError if a
+    scale has no nonzero tap or a zero between its first and last."""
+    out = np.zeros((kmat.shape[0], 2), np.int32)
+    for s, row in enumerate(kmat):
+        nz = np.flatnonzero(row)
+        if nz.size == 0 or nz.size != nz[-1] - nz[0] + 1:
+            raise ValueError(f"scale {s}: the nonzero taps are not one "
+                             f"contiguous range: {row.tolist()}")
+        out[s] = nz[0], nz[-1]
+    return out
+
+
+def _prepared(kmat: np.ndarray):
+    """(float32 taps, tap ranges) for the kernel, computed once for each
+    taps matrix; the cached taps are a copy, so a caller that later
+    writes into kmat changes the key, not the entry."""
+    key = (kmat.shape, kmat.dtype.str, kmat.tobytes())
+    hit = _PREPARED.get(key)
+    if hit is None:
+        taps = np.array(kmat, dtype=np.float32, order="C")
+        hit = _PREPARED[key] = (taps, tap_ranges(taps))
+    return hit
 
 
 def _pass_plain(x: torch.Tensor, kmat: np.ndarray, dim: int) -> torch.Tensor:
@@ -63,17 +94,16 @@ def _launch(x: torch.Tensor, kmat: np.ndarray) -> torch.Tensor:
     if s > 8 or k > 63:
         raise ValueError(f"K1 kernel takes S <= 8, K <= 63; got {s}, {k}")
     b, h, w = x.shape
-    if b * s > _MAX_GRID_Z:
-        raise ValueError(f"K1 kernel takes B * S <= {_MAX_GRID_Z} planes; "
-                         f"got B={b}, S={s}")
+    if b > _MAX_GRID_Z:
+        raise ValueError(f"K1 kernel takes B <= {_MAX_GRID_Z} frames; "
+                         f"got B={b}")
+    taps, ranges = _prepared(kmat)
     x = x.contiguous()
-    taps = np.ascontiguousarray(kmat, dtype=np.float32)
-    tmp = torch.empty((b, s, h, w), dtype=torch.float32, device=x.device)
     out = torch.empty((b, s, h, w), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().sift_blur_multi(
-            x.data_ptr(), tmp.data_ptr(), out.data_ptr(), b, h, w, s, k,
-            taps.ctypes.data, torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), out.data_ptr(), b, h, w, s, k, taps.ctypes.data,
+            ranges.ctypes.data, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sift_blur_multi")
     return out
 

@@ -7,10 +7,17 @@ order 0..127, so their distances are bit-identical, and both break
 ties to the lowest train index: a min, then the lowest index at that
 min, then the min with that column excluded (match_pallas.py:67-70).
 Invalid train rows arrive pre-masked (ops.match.mask_train).
+
+The kernel splits the train set into P splits of whole 64-row tiles
+(`split_plan`), keeps a partial top-2 per split and query, and merges
+the partials in split order: the other partial wins on a smaller d1,
+or an equal d1 with a lower index (tests/test_torch_kernel_designs.py
+models the rule against `knn2_l1_plain`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -19,6 +26,8 @@ from sift_tpu_torch import _build
 
 _INF = 3.0e38          # "no second neighbour", as match_pallas._INF
 _QUERY_CHUNK = 256     # bounds the plain version's (chunk, M) temporaries
+_QUERY_TILE = 64       # queries per block (csrc/knn2.cu kQB)
+_TRAIN_TILE = 64       # train rows per shared-memory tile (kTT)
 
 
 def _check_args(query: torch.Tensor, train: torch.Tensor) -> None:
@@ -30,6 +39,34 @@ def _check_args(query: torch.Tensor, train: torch.Tensor) -> None:
                          f"{tuple(train.shape)} {train.dtype}")
     if query.device != train.device:
         raise ValueError(f"query on {query.device}, train on {train.device}")
+
+
+def split_span(m: int, p: int) -> int:
+    """Train rows per split when M rows are cut into P splits of whole
+    tiles (at least one tile); the last splits may be short or empty."""
+    tiles = -(-m // _TRAIN_TILE)
+    return max(1, -(-tiles // p)) * _TRAIN_TILE
+
+
+def split_plan(n: int, m: int, n_sm: int) -> Tuple[int, int]:
+    """(P, rows per split) for N queries and M train rows on a card with
+    n_sm SMs: the fewest tiles per split that still give a grid of at
+    least two blocks per SM, unless the train set has fewer tiles."""
+    q_tiles = max(1, -(-n // _QUERY_TILE))
+    m_tiles = -(-m // _TRAIN_TILE)
+    want = -(-2 * n_sm // q_tiles)          # splits for two blocks per SM
+    per = max(1, m_tiles // want)           # tiles per split
+    p = max(1, -(-m_tiles // per))
+    return p, split_span(m, p)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(n: int, m: int, device: torch.device) -> Tuple[int, int]:
+    """split_plan on `device`'s SM count: what the wrapper launches with,
+    computed once for each (N, M, device); the main path's shapes are
+    fixed by the config's caps."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return split_plan(n, m, n_sm)
 
 
 def knn2_l1_plain(query: torch.Tensor, train: torch.Tensor
@@ -71,16 +108,27 @@ def knn2_l1_cuda(query: torch.Tensor, train: torch.Tensor
         raise ValueError(f"knn2_l1_cuda: unsupported device {query.device}")
     if query.shape[1] != 128:
         raise ValueError(f"K4 kernel takes D = 128, got {query.shape[1]}")
-    query = query.contiguous()
-    train = train.contiguous()
+    # the kernel copies rows in 16-byte chunks (cp.async): they must
+    # start 16-byte aligned, as a fresh allocation does
+    query, train = query.contiguous(), train.contiguous()
+    if query.data_ptr() % 16:
+        query = query.clone()
+    if train.data_ptr() % 16:
+        train = train.clone()
     n, m = query.shape[0], train.shape[0]
-    idx = torch.empty((n,), dtype=torch.int32, device=query.device)
-    d1 = torch.empty((n,), dtype=torch.float32, device=query.device)
-    d2 = torch.empty((n,), dtype=torch.float32, device=query.device)
-    with torch.cuda.device(query.device):
+    dev = query.device
+    p, span = launch_plan(n, m, dev)
+    # one scratch allocation: the (P, N) partial d1, d2 and, as int32,
+    # indices
+    part = torch.empty((3, p, n), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    d1 = torch.empty((n,), dtype=torch.float32, device=dev)
+    d2 = torch.empty((n,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         err = _build.library().sift_knn2_l1(
-            query.data_ptr(), train.data_ptr(), n, m, 128, idx.data_ptr(),
-            d1.data_ptr(), d2.data_ptr(),
+            query.data_ptr(), train.data_ptr(), n, m, 128, p, span,
+            part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(),
+            idx.data_ptr(), d1.data_ptr(), d2.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sift_knn2_l1")
     knn2_l1_cuda.launches += 1

@@ -3,8 +3,9 @@
 Twin of the reference demo (src/main.cpp:10-72) and of
 sift_tpu/pipeline.py: SIFT on scene and object, kNN-match
 object -> scene with ratio 0.86, RANSAC homography, object corners
-projected into the scene. Everything runs on the device of the input
-tensors; CPU tensors take the plain PyTorch version of every kernel.
+projected into the scene. It runs on the card unless asked for the
+CPU (`resolve_device`); on the CPU every kernel takes its plain PyTorch
+version.
 """
 
 from __future__ import annotations
@@ -35,18 +36,33 @@ class ObjectDetection(NamedTuple):
     corners: torch.Tensor        # (4, 2) object corners in scene coords
 
 
+def resolve_device(scene_gray, object_gray, device=None) -> torch.device:
+    """Where detect_object runs: `device` if given; else the device of
+    the tensor inputs, which must agree; else (NumPy inputs) CUDA."""
+    on = {x.device for x in (scene_gray, object_gray)
+          if isinstance(x, torch.Tensor)}
+    if len(on) > 1:
+        raise ValueError(f"scene on {scene_gray.device}, object on "
+                         f"{object_gray.device}")
+    if device is not None:
+        return torch.device(device)
+    return on.pop() if on else torch.device("cuda")
+
+
 def detect_object(scene_gray, object_gray,
-                  cfg: SIFTConfig = DEFAULT_CONFIG) -> ObjectDetection:
+                  cfg: SIFTConfig = DEFAULT_CONFIG,
+                  device=None) -> ObjectDetection:
     """Full demo flow on two grayscale images (values 0..255), given as
-    (H, W) tensors (both on one device) or NumPy arrays (run on the CPU).
+    (H, W) tensors or NumPy arrays. It runs on `device` if given (for
+    example "cpu"), else on the device of the input tensors (both on
+    one), else, for NumPy arrays, on CUDA.
 
     Object plays the kNN query role (descriptors1), scene the train
     role (descriptors0), as in main() (src/main.cpp:10-72).
     """
-    scene = torch.as_tensor(scene_gray, dtype=torch.float32)
-    obj = torch.as_tensor(object_gray, dtype=torch.float32)
-    if scene.device != obj.device:
-        raise ValueError(f"scene on {scene.device}, object on {obj.device}")
+    dev = resolve_device(scene_gray, object_gray, device)
+    scene = torch.as_tensor(scene_gray, dtype=torch.float32, device=dev)
+    obj = torch.as_tensor(object_gray, dtype=torch.float32, device=dev)
     kps, ds = sift.detect_and_compute(scene, cfg)
     kpo, do = sift.detect_and_compute(obj, cfg)
     m = match_mod.match_ratio(do, ds, q_valid=kpo.valid, t_valid=kps.valid,

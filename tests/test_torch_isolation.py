@@ -65,3 +65,29 @@ def test_every_kernel_has_a_cuda_source():
     # ctypes binds exactly the C entry points the sources define
     from sift_tpu_torch import _build
     assert entries == set(_build._SIGNATURES)
+
+
+def test_ctypes_argument_types_follow_the_c_signatures():
+    # ctypes passes what _SIGNATURES says: a pointer for each pointer
+    # parameter, an int or a float for each scalar, in the C order
+    from sift_tpu_torch import _build
+    kinds = {"P": _build._P, "I": _build._I, "F": _build._F}
+    for p in (PKG / "csrc").glob("*.cu"):
+        decls = re.findall(r'extern "C" int (\w+)\(([^)]*)\)', p.read_text())
+        for name, params in decls:
+            want = []
+            for param in params.split(","):
+                param = param.strip()
+                want.append(kinds["P" if "*" in param else
+                                  "F" if param.startswith("float") else "I"])
+            assert list(_build._SIGNATURES[name]) == want, name
+
+
+def test_match_wrapper_tiles_are_the_kernels():
+    # split_plan sizes the splits and scratch from copies of knn2.cu's
+    # tile constants: they must be the kernel's
+    from sift_tpu_torch.ops import match_cuda
+    src = (PKG / "csrc" / "knn2.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kQB|kTT) = (\d+);", src))
+    assert int(consts["kQB"]) == match_cuda._QUERY_TILE
+    assert int(consts["kTT"]) == match_cuda._TRAIN_TILE

@@ -22,7 +22,7 @@ from sift_tpu.pipeline import detect_object as jax_detect_object
 
 from sift_tpu_torch.config import DEFAULT_CONFIG, from_jax_config
 from sift_tpu_torch.ops import match as tmatch
-from sift_tpu_torch.pipeline import detect_object
+from sift_tpu_torch.pipeline import detect_object, resolve_device
 
 JCFG = JaxConfig(descr_rc_bf16=False, ori_gather_impl="dynamic_slice",
                  descr_gather_impl="dynamic_slice",
@@ -164,3 +164,30 @@ def test_cli_prints_the_demo_lines(pair, tmp_path, capsys):
     c = det.corners.numpy()
     assert lines[5] == "corners in scene: " + ", ".join(
         f"({x:.1f},{y:.1f})" for x, y in c)
+
+
+def test_numpy_input_runs_where_asked_and_defaults_to_the_card(pair, results):
+    # NumPy input with device="cpu" is the CPU-tensor run, bit for bit
+    scene, obj = pair
+    td = results[1]
+    nd = detect_object(scene, obj, TCFG, device="cpu")
+
+    def tensors(det):
+        for v in det:
+            if dataclasses.is_dataclass(v):
+                v = tuple(getattr(v, f.name) for f in dataclasses.fields(v))
+            yield from (v if isinstance(v, tuple) else (v,))
+
+    pairs = list(zip(tensors(nd), tensors(td)))
+    assert len(pairs) == 31
+    for x, y in pairs:
+        assert x.device.type == "cpu" and torch.equal(x, y)
+    # where each input runs, resolved without launching anything
+    assert resolve_device(scene, obj) == torch.device("cuda")
+    assert resolve_device(scene, obj, "cpu") == torch.device("cpu")
+    t_scene = torch.from_numpy(scene)
+    assert resolve_device(t_scene, obj) == torch.device("cpu")
+    assert resolve_device(t_scene, torch.from_numpy(obj)) == torch.device(
+        "cpu")
+    with pytest.raises(ValueError, match="scene on cpu, object on meta"):
+        resolve_device(t_scene, torch.empty((4, 4), device="meta"))

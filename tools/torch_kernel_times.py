@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Time the port's K1, K1-batch and K4 kernels, as their wrappers launch
+them, in one or more checkouts of the repository, in turns, with one
+timing method for all of them.
+
+    python3 tools/torch_kernel_times.py [TREE ...] [--rounds 2]
+                                        [--out build/kernel_times.json]
+
+Each TREE is a directory holding sift_tpu_torch/ (the default is this
+checkout). Every tree runs in its own process, in the order A B B A for
+each round (tools/torch_profile_steps.py's driver), and imports its own
+kernels and wrappers; the inputs and the timing come from this
+checkout's chip_smoke.py, so a tree whose chip_smoke.py timed another
+way is still timed the same way here. For every K1 launch of one 1080p
+detect_object (the scene's and the 640x480 object's base blur and five
+octaves), every K1-batch launch of the B = 8 batch step, and K4 at
+1536 x 1536, each process measures:
+  - device_ms: chip_smoke.median_ms, each of 20 calls queued behind a
+    spin kernel, so the events time the device's work only;
+  - events_ms: the same without the spin kernel, so a call whose host
+    side outlasts its kernels is timed with that host side;
+  - host_us: the host's time per call while the card is busy, the
+    median over 10 rounds of 50 calls enqueued without a synchronise;
+and the sums of each over the launches of one detect_object and of one
+batch step. Each process prints one JSON line; the summary and all lines
+go to --out. Needs one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import pathlib
+import statistics
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+import torch_profile_steps as steps  # noqa: E402  (the in-turns driver)
+
+METHODS = ("device_ms", "events_ms", "host_us")
+
+
+def _host_us(fn, calls: int = 50, rounds: int = 10) -> float:
+    import torch
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def _times(cs, label, shape, fn) -> dict:
+    return {"label": label, "shape": list(shape),
+            "device_ms": cs.median_ms(fn),
+            "events_ms": cs.median_ms(fn, queued=False),
+            "host_us": _host_us(fn)}
+
+
+def _sums(rows) -> dict:
+    return {k: sum(r[k] for r in rows) for k in METHODS}
+
+
+def worker(tree: pathlib.Path) -> dict:
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("timing_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import numpy as np
+    import torch
+    from sift_tpu_torch import _build
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops import pyramid
+    from sift_tpu_torch.ops.conv_cuda import blur_vh, blur_vh_batch
+    from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()
+    scene_np, obj_np, _ = cs.full_size_inputs()
+    img = torch.from_numpy(scene_np).cuda()
+    obj = torch.from_numpy(obj_np).cuda()
+
+    def blur_rows(wrapper, launches, where):
+        return [_times(cs, f"{where} {label}", x.shape,
+                       lambda x=x, k=kmat: wrapper(x, k))
+                for label, x, kmat in launches]
+
+    k1 = (blur_rows(blur_vh, cs.blur_launches(
+              img, pyramid.build_gaussian_pyramid(img, cfg), False, cfg),
+              "scene")
+          + blur_rows(blur_vh, cs.blur_launches(
+              obj, pyramid.build_gaussian_pyramid(obj, cfg), False, cfg),
+              "object"))
+    frames = cs.batch_frames(img)
+    k1b = blur_rows(blur_vh_batch, cs.blur_launches(
+        frames, pyramid.build_gaussian_pyramid_batch(frames, cfg), True,
+        cfg), "batch")
+    n = sum(cfg.out_caps)
+    q, tm = cs.knn_inputs(np.random.default_rng(0), n, n, img.device)
+    k4 = _times(cs, f"{n}x{n}", (n, n), lambda: knn2_l1_cuda(q, tm))
+    return {"tree": str(tree), "K1": k1, "K1-batch": k1b, "K4": k4,
+            "K1_per_detect_object": _sums(k1),
+            "K1-batch_per_batch_step": _sums(k1b),
+            "main": {"K1": k1[1], "K1-batch": k1b[1], "K4": k4}}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="*", default=[str(ROOT)])
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--out", default=str(ROOT / "build" / "kernel_times.json"))
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print(json.dumps(worker(pathlib.Path(args.worker).resolve())))
+        return 0
+
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_times: CUDA is not available", file=sys.stderr)
+        return 1
+    card = steps.card_name()
+    print(card)
+    trees = [str(pathlib.Path(t).resolve()) for t in args.trees]
+    runs = steps.run_in_turns(__file__, trees, args.rounds, (
+        "tree", "main", "K1_per_detect_object", "K1-batch_per_batch_step"))
+    if runs is None:
+        return 1
+    keys = ("K1", "K1-batch", "K4")
+    summary = {tree: {k: {m: [r["main"][k][m] for r in runs
+                              if r["tree"] == tree] for m in METHODS}
+                      for k in keys}
+               for tree in trees}
+    out = pathlib.Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"card": card, "summary": summary,
+                               "runs": runs}, indent=1))
+    print(json.dumps({"card": card, "summary": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

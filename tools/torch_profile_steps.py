@@ -12,9 +12,10 @@ turns. A process builds its tree's kernels, makes chip_smoke.py's
 synthetic 1080p scene, warms up, then measures on synchronised wall
 clocks:
   - bench.py's pair step (two detect_and_compute, one match_ratio),
-    median of 10, and its frames/s;
+    median of 10, its frames/s and its peak device memory;
   - the batch step (detect_and_compute_batch on chip_smoke.py's 8
-    frames, 7 matches), median of 5, and its frames/s;
+    frames, 7 matches), median of 5, its frames/s and its peak device
+    memory;
   - detect_and_compute on the scene and, within it, the octave-0
     descriptor stage (descriptors_octave), medians of 10;
 and, under torch.profiler, one pair step and one batch step: device
@@ -35,6 +36,17 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _peak_gib(fn) -> float:
+    """Peak device memory allocated during one call of fn, GiB (with
+    what the process already holds: the frames and octave 0's stack)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
 
 
 def _wall_ms(fn, runs: int) -> list:
@@ -118,6 +130,8 @@ def worker(tree: pathlib.Path) -> dict:
 
     pair = _wall_ms(pair_step, 10)
     batch = _wall_ms(batch_step, 5)
+    pair_peak = _peak_gib(pair_step)
+    batch_peak = _peak_gib(batch_step)
     dac = _wall_ms(lambda: sift.detect_and_compute(scene, cfg), 10)
     desc0 = _wall_ms(lambda: desc_mod.descriptors_octave(octs[0], kp0, cfg),
                      10)
@@ -127,11 +141,41 @@ def worker(tree: pathlib.Path) -> dict:
         "pair_fps": 2000.0 / statistics.median(pair),
         "batch_step_ms": batch,
         "batch_fps": nb * 1000.0 / statistics.median(batch),
+        "pair_peak_gib": pair_peak,
+        "batch_peak_gib": batch_peak,
         "detect_and_compute_ms": statistics.median(dac),
         "octave0_descriptors_ms": statistics.median(desc0),
         "pair_profile": _profile(pair_step, 2),
         "batch_profile": _profile(batch_step, nb),
     }
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+
+
+def run_in_turns(script: str, trees: list, rounds: int, show: tuple):
+    """Run `script --worker TREE` in its own process for each tree, in
+    the order A B B A for each round, from the tree's directory; print
+    the `show` keys of each process's JSON line as it comes. Returns the
+    lines, or None after printing the output of a process that failed."""
+    order = []
+    for _ in range(rounds):
+        order += trees + trees[::-1]
+    runs = []
+    for tree in order:
+        proc = subprocess.run([sys.executable, script, "--worker", tree],
+                              capture_output=True, text=True, cwd=tree)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return None
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append(run)
+        print(json.dumps({k: run[k] for k in show}), flush=True)
+    return runs
 
 
 def main() -> int:
@@ -149,33 +193,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile_steps: CUDA is not available", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout.strip()
+    card = card_name()
     print(card)
     trees = [str(pathlib.Path(t).resolve()) for t in args.trees]
-    order = []
-    for _ in range(args.rounds):
-        order += trees + trees[::-1]
-    runs = []
-    for tree in order:
-        proc = subprocess.run([sys.executable, __file__, "--worker", tree],
-                              capture_output=True, text=True, cwd=tree)
-        if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return proc.returncode
-        run = json.loads(proc.stdout.strip().splitlines()[-1])
-        runs.append(run)
-        print(json.dumps({k: run[k] for k in (
-            "tree", "pair_fps", "batch_fps", "detect_and_compute_ms",
-            "octave0_descriptors_ms")}), flush=True)
+    runs = run_in_turns(__file__, trees, args.rounds, (
+        "tree", "pair_fps", "batch_fps", "detect_and_compute_ms",
+        "octave0_descriptors_ms", "batch_peak_gib"))
+    if runs is None:
+        return 1
     summary = {}
     for tree in trees:
         mine = [r for r in runs if r["tree"] == tree]
         summary[tree] = {
             k: [r[k] for r in mine]
             for k in ("pair_fps", "batch_fps", "detect_and_compute_ms",
-                      "octave0_descriptors_ms")}
+                      "octave0_descriptors_ms", "pair_peak_gib",
+                      "batch_peak_gib")}
         for step in ("pair_profile", "batch_profile"):
             summary[tree][step] = [
                 {k: r[step][k] for k in ("device_busy_ms_per_frame",
