@@ -31,23 +31,34 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      windows start outside the image, within rtol 1e-5 and
      atol 1e-5 * max|hist| per row of their plain versions on valid rows
      (the sums only run in another order), and bit-identical across two
-     launches;
+     launches; K2's compact scan and the select kernel, as
+     top_candidates and top_candidates_batch launch them, under
+     torch.equal against top_candidates_plain (the stable sort of the
+     dense scores) on all four outputs at every octave of detect_object
+     and of the batch step (each row also the single-frame call), on a
+     plateau with far more candidates than the cap, at cap = n - 1, n,
+     n + 1, width 1917, an input 4 bytes off and a 48x24 octave whose
+     gap slots pass the border rows; each of the two kernels against its
+     own plain version; all route calls again with torch.sort removed
+     and torch.cuda.set_sync_debug_mode("error"); both kernels timed at
+     every octave, with sums per detect_object and per batch step;
   3. the whole path on a 480x640 synthetic pair, CPU (plain versions)
      against the card (kernels);
   4. the main path at 1920x1080: a 640x480 textured object warped into
      a synthetic scene by a known homography must be found, with its
-     corners within 2 px; K1, K2 and K4 must have launched, K3-ori and
-     K3-desc once per usable octave of each frame, and the bare gather
-     K3 not at all; then the steady-state time per detect_object and the
-     frames/s of bench.py's 1080p pair step (two detect+describe, one
-     match);
+     corners within 2 px; K1 and K4 must have launched, the compact scan,
+     the select kernel, K3-ori and K3-desc once per usable octave of
+     each frame, and the dense K2 and the bare gather K3 not at all; then
+     the steady-state time per detect_object and the frames/s of
+     bench.py's 1080p pair step (two detect+describe, one match);
   5. the throughput path at 1080p, B = 8 (frame i is the scene rolled by
      17 i columns): bench.py's batch step, detect_and_compute_batch plus
-     7 consecutive-frame matches, must launch K1-batch, K2-batch, K4,
-     and K3-ori and K3-desc once per usable octave of each frame, and
-     not the single-frame K1 and K2; every row of the batch must equal
-     detect_and_compute on its frame; then its frames/s and peak device
-     memory.
+     7 consecutive-frame matches, must launch K1-batch and K4, the
+     compact scan and the select kernel once per octave, K3-ori and
+     K3-desc once per usable octave of each frame, and not the
+     single-frame K1, the dense K2 or K2-batch; every row of the batch
+     must equal detect_and_compute on its frame; then its frames/s and
+     peak device memory.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}. Any
@@ -72,8 +83,8 @@ BATCH = 8
 ROLL_STEP = 17       # columns between consecutive frames (bench.py:493)
 TIMING_RUNS = 20
 EXTRA_SLOTS = 64     # phase-2 K3-ori/K3-desc slots starting outside the image
-KERNELS = ("K1", "K1-batch", "K2", "K2-batch", "K3", "K3-ori", "K3-desc",
-           "K4")
+KERNELS = ("K1", "K1-batch", "K2", "K2-batch", "K2-compact", "K2-select",
+           "K3", "K3-ori", "K3-desc", "K4")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 # The 67 TFLOP/s count an FMA as two operations. An operation with no
@@ -590,7 +601,8 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray) -> dict:
            "sift_tpu/ops/extrema_pallas.py:90", err, ms, pms, bnd)
 
     # K2-batch on the (8, 4, 1080, 1920) DoG of the eight frames
-    dogb = pyramid.build_dog_pyramid_batch(octsb)[0].contiguous()
+    dogsb = pyramid.build_dog_pyramid_batch(octsb)
+    dogb = dogsb[0].contiguous()
     del octsb
     got = extrema_scores_batch(dogb, cfg)
     want = extrema_scores_batch_plain(dogb, cfg)
@@ -614,6 +626,9 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray) -> dict:
            "sift_tpu_torch/csrc/extrema.cu",
            "sift_tpu/ops/extrema_pallas.py:167", err, ms, pms, bnd)
     del dogb
+    phase_select(dogs, pyramid.build_dog_pyramid(
+        pyramid.build_gaussian_pyramid(img_obj, cfg)), dogsb, record)
+    del dogsb
 
     # K3: p=39 with N=1024 (orientation), p=85 with N=64 and N=1024; a
     # copy: each window read once and written once
@@ -676,6 +691,209 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray) -> dict:
     record("K4", "K4 top-2 L1 matcher", "sift_tpu_torch/csrc/knn2.cu",
            "sift_tpu/ops/match_pallas.py:83", err, ms, pms, bnd)
     return report
+
+
+def compact_bound(shape, n: int, nl: int) -> tuple:
+    """K2's compact scan on (B, D, H, W): read the nl + 2 planes it
+    scans, write n keys and B counts; 27 comparisons per scanned pixel."""
+    b, _, h, w = shape
+    plane = float(h * w)
+    return bound_ms(4.0 * b * (nl + 2) * plane + 8.0 * n + 4.0 * b,
+                    27.0 * b * nl * plane)
+
+
+def select_bound(frames: int, n: int, cap: int) -> tuple:
+    """The select kernel: read n keys and the counts, write 13 bytes a
+    slot (three int32 and a bool); it moves keys and does no float
+    arithmetic."""
+    return bound_ms(8.0 * n + 4.0 * frames + 13.0 * frames * cap, 0.0)
+
+
+def phase_select(dogs, dogs_obj, dogsb, record) -> None:
+    """Phase 2, the fused selection: K2's compact scan and the select
+    kernel, as top_candidates / top_candidates_batch launch them, against
+    top_candidates_plain (the dense scores' stable sort) under
+    torch.equal on all four outputs, at every octave of detect_object
+    (1080p scene and 640x480 object) and of the B = 8 batch step (each
+    row also equal to the single-frame call), and on edge cases; each
+    kernel against its own plain version; the route once more with
+    torch.sort removed and host synchronisation an error; then both
+    kernels timed at every octave, with sums per detect_object and per
+    batch step. The JSON rows' max_abs_err is the largest difference
+    from the plain versions at the 1080p octave 0: over the sorted key
+    lists and counts (compact scan) and over layer, r, c and valid
+    (select)."""
+    import dataclasses
+
+    import torch
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops import extrema as ext
+    from sift_tpu_torch.ops.extrema_cuda import (extrema_compact,
+                                                 extrema_compact_plain,
+                                                 extrema_scores,
+                                                 extrema_scores_plain,
+                                                 select_candidates,
+                                                 select_candidates_plain)
+    nl = cfg.n_octave_layers
+
+    def same(got, want):
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+
+    def max_err(got, want) -> int:
+        return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+                   for a, b in zip(got, want))
+
+    errs = {}
+
+    def check_route(label, dog, cap, cfg=cfg) -> list:
+        """The fused route on dog ((D, H, W) or (B, D, H, W)) against the
+        plain route, and each kernel against its plain version; returns
+        the candidates per frame and keeps each kernel's largest
+        difference in errs[label]."""
+        batched = dog.dim() == 4
+        d4 = dog if batched else dog[None]
+        hw = tuple(dog.shape[-2:])
+        if batched:
+            got = ext.top_candidates_batch(dog, cap, cfg)
+            want = ext.top_candidates_batch_plain(dog, cap, cfg)
+            check(all(same((a[b] for a in got),
+                           ext.top_candidates(dog[b], cap, cfg))
+                      for b in range(dog.shape[0])),
+                  f"fused selection {label}: a row differs from the "
+                  f"single-frame call")
+        else:
+            got = ext.top_candidates(dog, cap, cfg)
+            want = ext.top_candidates_plain(dog, cap, cfg)
+        check(same(got, want), f"fused selection {label} differs from "
+              f"top_candidates_plain")
+        keys, count = extrema_compact(d4, cfg)
+        pkeys, pcount = extrema_compact_plain(d4, cfg)
+        check(torch.equal(count, pcount), f"compact scan {label}: counts "
+              f"{count.tolist()} vs plain {pcount.tolist()}")
+        err_c = max_err((count,), (pcount,))
+        for b, n in enumerate(pcount.tolist()):
+            gk = torch.sort(keys[b, :n]).values
+            wk = torch.sort(pkeys[b, :n]).values
+            check(torch.equal(gk, wk), f"compact scan {label}: frame {b}'s "
+                  f"keys differ from the plain version's")
+            err_c = max(err_c, max_err((gk,), (wk,)))
+        gs = select_candidates(keys, count, cap, hw)
+        ws = select_candidates_plain(keys, count, cap, hw)
+        check(same(gs, ws), f"select {label} differs from its plain version")
+        errs[label] = (err_c, max_err(gs, ws))
+        return pcount.tolist()
+
+    # every octave of the main path; the JSON rows are the 1080p octave 0
+    launches = ([(f"scene octave {o}", d.contiguous(), cfg.detect_caps[o])
+                 for o, d in enumerate(dogs)]
+                + [(f"object octave {o}", d.contiguous(), cfg.detect_caps[o])
+                   for o, d in enumerate(dogs_obj)])
+    batch = [(f"batch octave {o}", d.contiguous(), cfg.detect_caps[o])
+             for o, d in enumerate(dogsb)]
+    rows = {}
+    for label, dog, cap in launches + batch:
+        counts = check_route(label, dog, cap)
+        d4 = dog if dog.dim() == 4 else dog[None]
+        keys, count = extrema_compact(d4, cfg)
+        hw = tuple(dog.shape[-2:])
+        ms_c = median_ms(lambda: extrema_compact(d4, cfg))
+        ms_s = median_ms(lambda: select_candidates(keys, count, cap, hw))
+        bc = compact_bound(d4.shape, sum(counts), nl)
+        bs = select_bound(d4.shape[0], sum(counts), cap)
+        rows[label] = (d4, keys, count, cap, counts, ms_c, ms_s, bc, bs)
+        print(f"phase 2 K2 fused selection {label} {tuple(dog.shape)} "
+              f"cap={cap}: candidates={counts} equal to "
+              f"top_candidates_plain{' (each row the single frame)' if dog.dim() == 4 else ''}; "
+              f"compact scan {ms_c:.4f} ms (bound {bc[0]:.4f}, {bc[1]}), "
+              f"select {ms_s:.4f} ms (bound {bs[0]:.4f}, {bs[1]})")
+    for what, labels in (("detect_object", [x[0] for x in launches]),
+                         ("batch step", [x[0] for x in batch])):
+        sel = [rows[k] for k in labels]
+        print(f"phase 2 K2 fused selection per {what} ({len(sel)} octaves): "
+              f"compact scan {sum(r[5] for r in sel):.4f} ms, select "
+              f"{sum(r[6] for r in sel):.4f} ms, together "
+              f"{sum(r[5] + r[6] for r in sel):.4f} ms; bound "
+              f"{sum(r[7][0] + r[8][0] for r in sel):.4f} ms")
+
+    # edge cases: a plateau (n >> cap), n = cap and its neighbours, a
+    # width that is not a multiple of 4, an input 4 bytes off, and a
+    # small octave whose gap slots reach past the first border rows
+    d0 = dogs[0].contiguous()
+    plateau = torch.zeros_like(d0)
+    plateau[:, 100:400, 200:1000] = 20.0
+    n_pl = check_route("plateau", plateau, cfg.detect_caps[0])
+    check_route("plateau in a batch", torch.stack([plateau, d0]),
+                cfg.detect_caps[0])
+    d1 = dogs[1].contiguous()
+    n1 = int(extrema_compact_plain(d1[None], cfg)[1][0])
+    for cap in (n1 - 1, n1, n1 + 1):
+        check_route(f"cap {cap} at n {n1}", d1, cap)
+    check_route("width 1917", d0[:, :1079, :1917].contiguous(), 4096)
+    check_route("4 bytes off", offset_copy(d0), 4096)
+    small = dogs[2][:, :48, :24].clone()
+    small[1, 10, 10] = small.abs().max() + 50.0   # a peak at index 250
+    n_sm = check_route("48x24", small, 512)[0]
+    lay, r, c, _ = ext.top_candidates_plain(small, 512, cfg)
+    first = int(((lay[:n_sm] - 1) * 48 * 24 + r[:n_sm] * 24 + c[:n_sm]).min())
+    check(0 < n_sm and 512 - n_sm > cfg.img_border * 24
+          and first < 512 - n_sm,
+          f"the 48x24 case does not reach the general gap path "
+          f"(n {n_sm}, lowest candidate index {first})")
+    # caps whose slots pass the shared-memory sort (the device-memory
+    # scratch): the plateau's n >> 20000, and 65536 slots on the 1080p
+    # octave 2 (nL*H*W = 259200), most of them gaps
+    check_route("plateau cap 20000", plateau, 20000)
+    check_route("octave 2 cap 65536", dogs[2].contiguous(), 65536)
+    # nL = 8: two scan launches (layers 1..6, then 7..8) appending to one
+    # list; the dense K2 the same way
+    deep_cfg = dataclasses.replace(cfg, n_octave_layers=8)
+    deep = torch.cat([d0, d0.flip(-1), d0.flip(-2)])[:10].contiguous()
+    n_deep = check_route("nL 8", deep, 4096, deep_cfg)[0]
+    check(torch.equal(extrema_scores(deep, deep_cfg),
+                      extrema_scores_plain(deep, deep_cfg)),
+          "K2 at nL 8 is not bit-identical to its plain version")
+
+    # the route once more: no torch.sort, no host synchronisation
+    torch.cuda.synchronize()
+    real_sort = torch.sort
+
+    def no_sort(*args, **kwargs):
+        raise SmokeFailure("the fused selection called torch.sort")
+
+    torch.sort = no_sort
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for label, dog, cap in launches + batch + [
+                ("plateau cap 20000", plateau, 20000)]:
+            (ext.top_candidates_batch if dog.dim() == 4
+             else ext.top_candidates)(dog, cap, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.sort = real_sort
+    torch.cuda.synchronize()
+    print(f"phase 2 K2 fused selection edge cases: plateau (candidates "
+          f"{n_pl[0]} > cap {cfg.detect_caps[0]}, also in a batch), cap "
+          f"n-1, n, n+1 at n={n1}, width 1917, 4 bytes off, 48x24 with "
+          f"cap 512 (n={n_sm}, general gap path), caps 20000 (plateau) and "
+          f"65536 (octave 2) sorting in device memory, nL 8 in two scan "
+          f"launches (n={n_deep}; dense K2 too): all equal to "
+          f"top_candidates_plain; every route call again, and the plateau "
+          f"at cap 20000, with torch.sort removed and sync debug mode "
+          f"'error': no sort, no host sync")
+
+    # JSON rows: the 1080p scene's octave 0
+    d4, keys, count, cap, counts, ms_c, ms_s, bc, bs = rows["scene octave 0"]
+    err_c, err_s = errs["scene octave 0"]
+    record("K2-compact", "K2 compact extremum scan (candidate keys)",
+           "sift_tpu_torch/csrc/extrema.cu",
+           "sift_tpu/ops/extrema_pallas.py:90", float(err_c), ms_c,
+           median_ms(lambda: extrema_compact_plain(d4, cfg)), bc)
+    hw = tuple(d4.shape[-2:])
+    record("K2-select", "K2 top-cap candidate selection",
+           "sift_tpu_torch/csrc/extrema.cu", "sift_tpu/ops/extrema.py:214",
+           float(err_s), ms_s,
+           median_ms(lambda: select_candidates_plain(keys, count, cap, hw)),
+           bs)
 
 
 def phase_fused_hist(gauss, kp, rng, record) -> None:
@@ -810,14 +1028,17 @@ def phase_cpu_vs_card():
 def wrappers() -> dict:
     """Each kernel's wrapper, whose `launches` counts its launches."""
     from sift_tpu_torch.ops.conv_cuda import blur_vh, blur_vh_batch
-    from sift_tpu_torch.ops.extrema_cuda import (extrema_scores,
-                                                 extrema_scores_batch)
+    from sift_tpu_torch.ops.extrema_cuda import (extrema_compact,
+                                                 extrema_scores,
+                                                 extrema_scores_batch,
+                                                 select_candidates)
     from sift_tpu_torch.ops.descr_hist_cuda import descriptor_hist
     from sift_tpu_torch.ops.ori_gather_cuda import gather_patches
     from sift_tpu_torch.ops.ori_hist_cuda import orientation_hist
     from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda
     return {"K1": blur_vh, "K1-batch": blur_vh_batch, "K2": extrema_scores,
-            "K2-batch": extrema_scores_batch, "K3": gather_patches,
+            "K2-batch": extrema_scores_batch, "K2-compact": extrema_compact,
+            "K2-select": select_candidates, "K3": gather_patches,
             "K3-ori": orientation_hist, "K3-desc": descriptor_hist,
             "K4": knn2_l1_cuda}
 
@@ -856,19 +1077,20 @@ def phase_main_path(scene_np, obj_np, true_corners, report) -> float:
     scene = torch.from_numpy(scene_np).cuda()
     obj = torch.from_numpy(obj_np).cuda()
     det, launches = counted(lambda: detect_object(scene, obj, cfg))
-    path = ("K1", "K2", "K3-ori", "K3-desc", "K4")
+    path = ("K1", "K2-compact", "K2-select", "K3-ori", "K3-desc", "K4")
     counts = [launches[k] for k in path]
-    for k in path + ("K3",):
+    for k in path + ("K2", "K3"):
         report[k]["launches"] = launches[k]
     check(all(nl > 0 for nl in counts),
           f"a kernel did not launch on the main path: {counts}")
     per_frame = usable_octaves(scene_np.shape) + usable_octaves(obj_np.shape)
-    check(launches["K3-ori"] == per_frame and launches["K3-desc"] == per_frame,
-          f"K3-ori/K3-desc launched {launches['K3-ori']}/"
-          f"{launches['K3-desc']} times, not once per usable octave "
-          f"({per_frame})")
-    check(launches["K3"] == 0,
-          f"the bare gather K3 launched {launches['K3']} times")
+    once = ("K2-compact", "K2-select", "K3-ori", "K3-desc")
+    check(all(launches[k] == per_frame for k in once),
+          f"{once} launched { [launches[k] for k in once] } times, not "
+          f"once per usable octave ({per_frame})")
+    check(launches["K3"] == 0 and launches["K2"] == 0,
+          f"the bare gather K3 / the dense K2 launched {launches['K3']} / "
+          f"{launches['K2']} times")
     corners = det.corners.cpu().numpy()
     cerr = float(np.abs(corners - true_corners).max())
     n_s, n_o = int(det.scene_kp.count()), int(det.object_kp.count())
@@ -876,7 +1098,8 @@ def phase_main_path(scene_np, obj_np, true_corners, report) -> float:
     sat = [sift.octave_saturation(k, cfg).cpu().numpy().astype(int).tolist()
            for k in (det.scene_kp, det.object_kp)]
     print(f"phase 4 main path 1080x1920 scene / 480x640 object: launches "
-          f"{dict(zip(path, counts))} gather K3={launches['K3']} "
+          f"{dict(zip(path, counts))} gather K3={launches['K3']} dense "
+          f"K2={launches['K2']} "
           f"scene_kp={n_s} object_kp={n_o} good={n_good} "
           f"inliers={n_inl} found={bool(det.found)} "
           f"corner_err_px={cerr!r} out_cap_saturated(scene, object)={sat}")
@@ -922,12 +1145,20 @@ def phase_batch(scene_np, report, pair_fps: float) -> None:
     (kp, d, ms), launches = counted(batch_step)
     for k in ("K1-batch", "K2-batch"):
         report[k]["launches"] = launches[k]
-    check(all(launches[k] > 0 for k in ("K1-batch", "K2-batch", "K3-ori",
-                                        "K3-desc", "K4")),
+    check(all(launches[k] > 0 for k in ("K1-batch", "K2-compact",
+                                        "K2-select", "K3-ori", "K3-desc",
+                                        "K4")),
           f"a kernel of the batch path did not launch: {launches}")
-    check(launches["K1"] == 0 and launches["K2"] == 0 and launches["K3"] == 0,
-          f"the batch path launched a single-frame kernel: {launches}")
-    per_step = BATCH * usable_octaves(scene_np.shape)
+    check(all(launches[k] == 0 for k in ("K1", "K2", "K2-batch", "K3")),
+          f"the batch path launched a single-frame kernel or the dense "
+          f"K2: {launches}")
+    octaves = usable_octaves(scene_np.shape)
+    check(launches["K2-compact"] == octaves
+          and launches["K2-select"] == octaves,
+          f"batch step: the compact scan / select launched "
+          f"{launches['K2-compact']}/{launches['K2-select']} times, not "
+          f"once per octave ({octaves})")
+    per_step = BATCH * octaves
     check(launches["K3-ori"] == per_step and launches["K3-desc"] == per_step,
           f"batch step: K3-ori/K3-desc launched {launches['K3-ori']}/"
           f"{launches['K3-desc']} times, not {per_step}")

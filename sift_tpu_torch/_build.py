@@ -39,6 +39,11 @@ _SIGNATURES = {
     "sift_blur_multi": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # dog, out, B, D, nl, H, W, thr, border, stream
     "sift_extrema_scores": (_P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # dog, keys, count, B, D, nl, H, W, thr, border, stream
+    "sift_extrema_compact": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    # keys, count, scratch, layer, row, col, valid, B, cap, nl, H, W, stream
+    "sift_extrema_select": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P),
     "sift_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # src, layer, row, col, radius, expf_scale, out, N, L, Hp, Wp, rp, stream
     "sift_ori_hist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -4,12 +4,18 @@ Twin of the 26-neighbour NMS in findScaleSpaceExtremaComputer
 (src/sift.cpp:487-511) and of sift_tpu/ops/extrema.py: a pixel is a
 candidate iff |val| > 8 (the literal threshold at src/sift.cpp:564) and
 it is >= (resp. <=) every neighbour of its 3x3x3 DoG cube, with a 5 px
-border margin. The mask and the dense score field live with K2
-(ops/extrema_cuda.py); the top `cap` candidates by |response| are then
-taken with one stable descending sort, so equal scores keep the lower
-flat index first, as jax.lax.top_k does. `top_candidates_batch` does the
-same for B frames: one K2-batch launch and one sort along the last axis
-of the (B, nL*H*W) scores, so row b equals top_candidates(dog[b]).
+border margin. The top `cap` candidates by |response| fill the slots in
+the order of a stable descending sort of the dense score field, so equal
+scores keep the lower flat index first, as jax.lax.top_k does.
+
+`top_candidates` (one frame) and `top_candidates_batch` (B frames, row b
+equal to top_candidates(dog[b])) reach that order two ways:
+- on the card, K2's compact scan appends each candidate's key to its
+  frame's list and the select kernel takes the top `cap` keys
+  (ops/extrema_cuda.py): no dense score field, no sort of it, no host
+  synchronisation;
+- on the CPU, `top_candidates_plain` / `top_candidates_batch_plain` sort
+  the dense scores of the plain K2 (`_decode`).
 """
 
 from __future__ import annotations
@@ -21,7 +27,11 @@ import torch.nn.functional as F
 
 from sift_tpu_torch.config import SIFTConfig, DEFAULT_CONFIG
 from sift_tpu_torch.ops.extrema_cuda import (  # noqa: F401
-    extrema_mask, extrema_scores, extrema_scores_batch)
+    _check_device, check_field, extrema_compact, extrema_mask,
+    extrema_scores, extrema_scores_batch, extrema_scores_batch_plain,
+    extrema_scores_plain, select_candidates, unpack_indices)
+
+Candidates = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def stable_top_k(x: torch.Tensor, k: int
@@ -32,38 +42,59 @@ def stable_top_k(x: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
+def top_candidates_plain(dog: torch.Tensor, cap: int,
+                         cfg: SIFTConfig = DEFAULT_CONFIG) -> Candidates:
+    """top_candidates by the plain K2 and a stable sort of its scores."""
+    return _decode(extrema_scores_plain(dog, cfg).reshape(-1), cap,
+                   dog.shape)
+
+
 def top_candidates(dog: torch.Tensor, cap: int,
-                   cfg: SIFTConfig = DEFAULT_CONFIG
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                              torch.Tensor]:
+                   cfg: SIFTConfig = DEFAULT_CONFIG) -> Candidates:
     """Up to `cap` NMS candidates ranked by |DoG response|.
 
     Returns (layer, r, c, valid), each (cap,); layer is the absolute
     DoG layer index (1..nL). Slots past the candidate count are invalid.
+    CPU tensors take top_candidates_plain; CUDA tensors launch the
+    compact scan and the select kernel. A field (nL*H*W) of more than
+    2^31 - 1 pixels raises on every device.
     """
-    return _decode(extrema_scores(dog, cfg).reshape(-1), cap, dog.shape)
+    check_field(cfg.n_octave_layers, dog.shape[-2:])
+    if _check_device(dog, "top_candidates"):
+        return top_candidates_plain(dog, cap, cfg)
+    return tuple(a[0] for a in _compact_select(dog[None], cap, cfg))
 
 
-def top_candidates_batch(dog: torch.Tensor, cap: int,
-                         cfg: SIFTConfig = DEFAULT_CONFIG
-                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                    torch.Tensor]:
-    """B frames: (B, D, H, W) -> (layer, r, c, valid), each (B, cap);
-    row b equals top_candidates(dog[b], cap)."""
-    score = extrema_scores_batch(dog, cfg).reshape(dog.shape[0], -1)
+def top_candidates_batch_plain(dog: torch.Tensor, cap: int,
+                               cfg: SIFTConfig = DEFAULT_CONFIG
+                               ) -> Candidates:
+    """top_candidates_batch by the plain K2-batch and a stable sort."""
+    score = extrema_scores_batch_plain(dog, cfg).reshape(dog.shape[0], -1)
     return _decode(score, cap, dog.shape)
 
 
-def _decode(score: torch.Tensor, cap: int, shape) -> Tuple[
-        torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+def top_candidates_batch(dog: torch.Tensor, cap: int,
+                         cfg: SIFTConfig = DEFAULT_CONFIG) -> Candidates:
+    """B frames: (B, D, H, W) -> (layer, r, c, valid), each (B, cap);
+    row b equals top_candidates(dog[b], cap). One compact scan and one
+    select launch for all frames on the card."""
+    check_field(cfg.n_octave_layers, dog.shape[-2:])
+    if _check_device(dog, "top_candidates_batch"):
+        return top_candidates_batch_plain(dog, cap, cfg)
+    return _compact_select(dog, cap, cfg)
+
+
+def _compact_select(dog: torch.Tensor, cap: int, cfg: SIFTConfig
+                    ) -> Candidates:
+    keys, count = extrema_compact(dog, cfg)
+    return select_candidates(keys, count, cap, dog.shape[-2:])
+
+
+def _decode(score: torch.Tensor, cap: int, shape) -> Candidates:
     """Top `cap` of (..., nL*H*W) flat scores -> (layer, r, c, valid)."""
-    h, w = shape[-2:]
     k = min(cap, score.shape[-1])
     vals, idx = stable_top_k(score, k)
     if k < cap:  # pad up to the static cap
         vals = F.pad(vals, (0, cap - k), value=-1.0)
         idx = F.pad(idx, (0, cap - k))
-    layer = idx // (h * w) + 1
-    rem = idx % (h * w)
-    return (layer.to(torch.int32), (rem // w).to(torch.int32),
-            (rem % w).to(torch.int32), vals > 0.0)
+    return unpack_indices(idx, vals > 0.0, shape[-2:])

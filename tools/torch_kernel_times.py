@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K1-batch and K4 kernels, as their wrappers launch
-them, in one or more checkouts of the repository, in turns, with one
-timing method for all of them.
+"""Time the port's K1, K1-batch, K2, K2-batch and K4 kernels and its
+candidate selection, as their wrappers launch them, in one or more
+checkouts of the repository, in turns, with one timing method for all
+of them.
 
     python3 tools/torch_kernel_times.py [TREE ...] [--rounds 2]
                                         [--out build/kernel_times.json]
@@ -11,10 +12,17 @@ checkout). Every tree runs in its own process, in the order A B B A for
 each round (tools/torch_profile_steps.py's driver), and imports its own
 kernels and wrappers; the inputs and the timing come from this
 checkout's chip_smoke.py, so a tree whose chip_smoke.py timed another
-way is still timed the same way here. For every K1 launch of one 1080p
-detect_object (the scene's and the 640x480 object's base blur and five
-octaves), every K1-batch launch of the B = 8 batch step, and K4 at
-1536 x 1536, each process measures:
+way is still timed the same way here. Each process times:
+  - K1 at every launch of one 1080p detect_object (the scene's and the
+    640x480 object's base blur and five octaves), K1-batch at every
+    launch of the B = 8 batch step, and K4 at 1536 x 1536;
+  - the dense K2 (extrema_scores) at the scene's octave 0 and K2-batch
+    (extrema_scores_batch) at the batch step's;
+  - the candidate selection, ops/extrema.top_candidates at every octave
+    of detect_object and top_candidates_batch at every octave of the
+    batch step, whatever the tree launches for it (before the compact
+    scan: the dense K2, a stable sort of the scores and the decode);
+each with
   - device_ms: chip_smoke.median_ms, each of 20 calls queued behind a
     spin kernel, so the events time the device's work only;
   - events_ms: the same without the spin kernel, so a call whose host
@@ -77,6 +85,7 @@ def worker(tree: pathlib.Path) -> dict:
     import torch
     from sift_tpu_torch import _build
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops import extrema as ext
     from sift_tpu_torch.ops import pyramid
     from sift_tpu_torch.ops.conv_cuda import blur_vh, blur_vh_batch
     from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda
@@ -106,10 +115,40 @@ def worker(tree: pathlib.Path) -> dict:
     n = sum(cfg.out_caps)
     q, tm = cs.knn_inputs(np.random.default_rng(0), n, n, img.device)
     k4 = _times(cs, f"{n}x{n}", (n, n), lambda: knn2_l1_cuda(q, tm))
+
+    # the candidate scan and selection at every octave
+    dogs = {"scene": pyramid.build_dog_pyramid(
+                pyramid.build_gaussian_pyramid(img, cfg)),
+            "object": pyramid.build_dog_pyramid(
+                pyramid.build_gaussian_pyramid(obj, cfg)),
+            "batch": pyramid.build_dog_pyramid_batch(
+                pyramid.build_gaussian_pyramid_batch(frames, cfg))}
+    dogs = {k: [d.contiguous() for d in v] for k, v in dogs.items()}
+
+    def select_rows(where, route):
+        return [_times(cs, f"{where} octave {o}", d.shape,
+                       lambda d=d, cap=cfg.detect_caps[o]: route(d, cap, cfg))
+                for o, d in enumerate(dogs[where])]
+
+    sel = (select_rows("scene", ext.top_candidates)
+           + select_rows("object", ext.top_candidates))
+    selb = select_rows("batch", ext.top_candidates_batch)
+    d0, db0 = dogs["scene"][0], dogs["batch"][0]
+    k2 = _times(cs, "scene octave 0", d0.shape,
+                lambda: ext.extrema_scores(d0, cfg))
+    k2b = _times(cs, "batch octave 0", db0.shape,
+                 lambda: ext.extrema_scores_batch(db0, cfg))
     return {"tree": str(tree), "K1": k1, "K1-batch": k1b, "K4": k4,
+            "K2": k2, "K2-batch": k2b, "selection": sel,
+            "selection-batch": selb,
             "K1_per_detect_object": _sums(k1),
             "K1-batch_per_batch_step": _sums(k1b),
-            "main": {"K1": k1[1], "K1-batch": k1b[1], "K4": k4}}
+            "selection_per_detect_object": _sums(sel),
+            "selection_per_batch_step": _sums(selb),
+            "main": {"K1": k1[1], "K1-batch": k1b[1], "K4": k4, "K2": k2,
+                     "K2-batch": k2b,
+                     "selection_per_detect_object": _sums(sel),
+                     "selection_per_batch_step": _sums(selb)}}
 
 
 def main() -> int:
@@ -134,7 +173,8 @@ def main() -> int:
         "tree", "main", "K1_per_detect_object", "K1-batch_per_batch_step"))
     if runs is None:
         return 1
-    keys = ("K1", "K1-batch", "K4")
+    keys = ("K1", "K1-batch", "K4", "K2", "K2-batch",
+            "selection_per_detect_object", "selection_per_batch_step")
     summary = {tree: {k: {m: [r["main"][k][m] for r in runs
                               if r["tree"] == tree] for m in METHODS}
                       for k in keys}

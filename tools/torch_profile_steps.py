@@ -20,8 +20,8 @@ clocks:
     descriptor stage (descriptors_octave), medians of 10;
 and, under torch.profiler, one pair step and one batch step: device
 busy time (the union of the device events' intervals), device events
-(kernel launches, copies and fills) and the largest device ops, each
-per frame. Each process prints one JSON line; the summary and all
+(kernel launches, copies and fills), the device time of the aten sort
+ops and the largest device ops, each per frame. Each process prints one JSON line; the summary and all
 lines go to --out. Needs one card.
 """
 
@@ -63,8 +63,9 @@ def _wall_ms(fn, runs: int) -> list:
 
 
 def _profile(fn, frames: int) -> dict:
-    """Device busy ms, device events and the top device ops, per frame,
-    of one call of fn under torch.profiler."""
+    """Device busy ms, device events, the aten sort ops' device ms and
+    the top device ops, per frame, of one call of fn under
+    torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -82,11 +83,15 @@ def _profile(fn, frames: int) -> dict:
         if b > end:
             busy_us += b - max(a, end)
             end = b
+    averages = prof.key_averages()
     ops = sorted(((e.self_device_time_total, e.key, e.count)
-                  for e in prof.key_averages()
+                  for e in averages
                   if e.self_device_time_total > 0), reverse=True)[:8]
+    sort_us = sum(e.self_device_time_total for e in averages
+                  if e.key.startswith("aten::") and "sort" in e.key)
     return {"device_busy_ms_per_frame": busy_us / 1e3 / frames,
             "device_events_per_frame": len(spans) / frames,
+            "sort_ms_per_frame": sort_us / 1e3 / frames,
             "top_device_ops_ms_per_frame": [
                 [k, t / 1e3 / frames, n / frames] for t, k, n in ops]}
 
@@ -212,7 +217,8 @@ def main() -> int:
         for step in ("pair_profile", "batch_profile"):
             summary[tree][step] = [
                 {k: r[step][k] for k in ("device_busy_ms_per_frame",
-                                         "device_events_per_frame")}
+                                         "device_events_per_frame",
+                                         "sort_ms_per_frame")}
                 for r in mine]
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
