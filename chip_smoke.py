@@ -58,7 +58,27 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      K3-desc once per usable octave of each frame, and not the
      single-frame K1, the dense K2 or K2-batch; every row of the batch
      must equal detect_and_compute on its frame; then its frames/s and
-     peak device memory.
+     peak device memory;
+  6. the mapping path (sfm.mapping.run_mapping: detect + describe per
+     frame, sequential K4 matches, incremental SfM, loop closures, pose
+     graph, closure-aware BA, export), rendered by the port's cv2-free
+     renderer from four synthetic 480x640 textures (fixed seeds):
+     6a at eval_mapping's gated configuration, 16 frames of 240x320 on
+     the card, must meet the four mapping gates of sift_tpu_torch.eval
+     (registered >= 0.9 F, >= 1 closure, ate_final <= 0.07, reproj_rmse
+     <= 4e-3) and write both export files, with the compact scan, the
+     select, K3-ori and K3-desc launched once per usable octave of each
+     frame, K4 once per sequential pair (42) and K1-batch, the dense
+     K2/K2-batch and the bare gather K3 never; 6b runs tests/
+     test_mapping.py's 10 frames of 200x268 on the CPU (plain versions)
+     and on the card with one shared RANSAC sampler (a seeded CPU
+     torch.Generator): equal registered frames and closure pairs,
+     ate_final and reproj_rmse within 10 % relative; 6c runs the CLI's
+     frame size, 24 frames of 480x640, on the card (>= 90 % registered,
+     a closure), then prints the median wall time of 3 calls after a
+     warm-up by stage (front end, reconstruct, loop closure + pose
+     graph, final BA) and the device busy time, device events and
+     largest device kernels of one call (torch.profiler).
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}. Any
@@ -98,6 +118,15 @@ SPIN_CYCLES_PER_S = 2.0e9
 # csrc/descr_hist.cu (expf, sqrtf and a division counted as one each)
 ORI_OPS_PER_SAMPLE = 26
 DESC_OPS_PER_SAMPLE = 70
+# phase 6, the mapping path: (frames, (H, W)) of eval_mapping's gated
+# configuration, of tests/test_mapping.py's sequence and of the CLI's
+# default frame size; the plane textures' size
+MAP_GATED = (16, (240, 320))
+MAP_SMALL = (10, (200, 268))
+MAP_CLI = (24, (480, 640))
+MAP_TEXTURE_HW = (480, 640)
+# ate_final and reproj_rmse, CPU run against card run, relative
+MAP_CPU_CARD_RTOL = 0.10
 
 
 class SmokeFailure(Exception):
@@ -1212,6 +1241,201 @@ def phase_batch(scene_np, report, pair_fps: float) -> None:
           f"{peak / 2**30:.3f} GiB")
 
 
+def mapping_textures() -> list:
+    """Phase 6's four plane textures (the renderer's `_TEXTURES`
+    slots): 480x640 synthetic gray images from fixed seeds."""
+    return [to_gray(texture(*MAP_TEXTURE_HW, seed=100 + i, n_blobs=300))
+            for i in range(4)]
+
+
+def sequential_pairs(n_frames: int, window: int) -> int:
+    """Frame pairs run_mapping matches with K4: each frame against the
+    next `window` frames."""
+    return sum(min(window, n_frames - 1 - i) for i in range(n_frames))
+
+
+def cpu_sampler(kind, valid, n_samples, k, seed):
+    """RANSAC draws from a seeded CPU torch.Generator, moved to the
+    call's device: a CPU and a CUDA run draw the same samples (the two
+    devices' generators give different streams)."""
+    import torch
+    from sift_tpu_torch.geometry.homography import gumbel_top_k
+    gen = torch.Generator().manual_seed(seed)
+    return gumbel_top_k(valid.cpu(), n_samples, k, gen).to(valid.device)
+
+
+def mapping_gates(stats: dict, ate: dict) -> list:
+    """The failed `mapping_*` gates of sift_tpu_torch.eval.GATES."""
+    from sift_tpu_torch.eval import GATES
+    failed = []
+    if stats["n_registered"] < (GATES["mapping_min_registered_frac"]
+                                * stats["n_frames"]):
+        failed.append("registered")
+    if stats["n_closures"] < GATES["mapping_min_closures"]:
+        failed.append("closures")
+    if ate["ate_final"] > GATES["mapping_max_ate"]:
+        failed.append("ate_final")
+    if stats["reproj_rmse"] > GATES["mapping_max_reproj"]:
+        failed.append("reproj_rmse")
+    return failed
+
+
+def _stats_line(stats: dict, ate: dict) -> str:
+    keys = ("n_registered", "n_points", "n_seq_pairs", "n_closures",
+            "n_closure_edges", "n_closure_obs", "reproj_rmse")
+    return (" ".join(f"{k}={stats[k]!r}" for k in keys) + " "
+            + " ".join(f"{k}={v!r}" for k, v in ate.items()))
+
+
+def phase_mapping_gated(textures) -> None:
+    """Phase 6a: run_mapping on CUDA at eval_mapping's configuration (16
+    frames of 240x320, sift_tpu/eval.py:248-249), default arguments,
+    exporting to a temporary directory; the four mapping gates, both
+    export files, and the launches of every kernel."""
+    import os
+    import tempfile
+    from sift_tpu_torch.sfm.mapping import (mapping_ate,
+                                            render_corner_sequence,
+                                            run_mapping)
+    n_frames, hw = MAP_GATED
+    frames, k, gt = render_corner_sequence(n_frames=n_frames, size=hw,
+                                           textures=textures)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        res, launches = counted(lambda: run_mapping(
+            frames, k, export_prefix=os.path.join(td, "map")))
+        exported = [os.path.exists(p) for p in res.stats["export"].values()]
+    wall = time.perf_counter() - t0
+    ate = mapping_ate(res, gt)
+    print(f"phase 6a mapping {n_frames}x{hw[0]}x{hw[1]} on the card: "
+          f"{_stats_line(res.stats, ate)} exported={exported} "
+          f"launches { {k: launches[k] for k in KERNELS} } "
+          f"(first run {wall:.1f} s)")
+    failed = mapping_gates(res.stats, ate)
+    check(not failed, f"mapping gates failed: {failed}")
+    check(len(exported) == 2 and all(exported), "export files missing")
+    per_octave = n_frames * usable_octaves(hw)
+    once = ("K2-compact", "K2-select", "K3-ori", "K3-desc")
+    check(all(launches[k] == per_octave for k in once),
+          f"{once} launched { [launches[k] for k in once] } times, not "
+          f"once per usable octave of each frame ({per_octave})")
+    pairs = sequential_pairs(n_frames, 3)
+    check(launches["K4"] == pairs,
+          f"K4 launched {launches['K4']} times, not once per sequential "
+          f"pair ({pairs})")
+    check(launches["K1"] > 0, "K1 did not launch")
+    check(all(launches[k] == 0 for k in ("K1-batch", "K2", "K2-batch",
+                                         "K3")),
+          f"the mapping path launched a batch kernel, the dense K2 or the "
+          f"bare gather K3: {launches}")
+
+
+def phase_mapping_cpu_vs_card(textures) -> None:
+    """Phase 6b: the same run_mapping on tests/test_mapping.py's sequence
+    (10 frames of 200x268, seed 3; pair window 2, min gap 4, one closure
+    candidate), plain versions on the CPU against the card, both drawing
+    RANSAC samples from cpu_sampler. Registered frames and closure pairs
+    must be equal; ATE and RMSE within MAP_CPU_CARD_RTOL, relative."""
+    from sift_tpu_torch.sfm.mapping import (mapping_ate,
+                                            render_corner_sequence,
+                                            run_mapping)
+    n_frames, hw = MAP_SMALL
+    frames, k, gt = render_corner_sequence(n_frames=n_frames, size=hw,
+                                           seed=3, textures=textures)
+    kw = dict(pair_window=2, min_gap=4, closure_candidates=1,
+              sampler=cpu_sampler)
+    t0 = time.perf_counter()
+    on_cpu = run_mapping(frames, k, device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    on_card = run_mapping(frames, k, **kw)
+    out = {}
+    for name, res in (("cpu", on_cpu), ("card", on_card)):
+        ate = mapping_ate(res, gt)
+        out[name] = (ate["ate_final"], res.reproj_rmse)
+        print(f"phase 6b mapping {n_frames}x{hw[0]}x{hw[1]} on the {name}: "
+              f"{_stats_line(res.stats, ate)}")
+    check(np.array_equal(on_cpu.registered, on_card.registered),
+          "registered frames differ")
+    pairs = [[(c.i, c.j) for c in r.closures] for r in (on_cpu, on_card)]
+    check(pairs[0] == pairs[1], f"closure pairs differ: {pairs}")
+    rel = [abs(a - b) / abs(a) for a, b in zip(out["cpu"], out["card"])]
+    print(f"phase 6b cpu-vs-card: registered equal, closure pairs equal "
+          f"({len(pairs[0])}), relative difference ate_final={rel[0]!r} "
+          f"reproj_rmse={rel[1]!r} (cpu run {t_cpu:.1f} s)")
+    check(max(rel) <= MAP_CPU_CARD_RTOL,
+          f"ate_final / reproj_rmse differ by {rel} (> {MAP_CPU_CARD_RTOL})")
+
+
+def _profile_busy(fn) -> tuple:
+    """(device busy ms -- the union of the device events' intervals --,
+    device events, the 8 largest device kernels as (name, ms, calls)) of
+    one call of fn under torch.profiler, tracing the card only. The raw
+    trace events are read directly: building the profiler's EventList
+    of a call with ~10^6 events takes minutes."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    spans = sorted((e.start_ns(), e.end_ns()) for e in events)
+    busy_ns, end = 0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_ns += b - max(a, end)
+            end = b
+    per_name = collections.defaultdict(lambda: [0, 0])
+    for e in events:
+        agg = per_name[e.name()[:60]]
+        agg[0] += e.duration_ns()
+        agg[1] += 1
+    ops = sorted(((t, k, n) for k, (t, n) in per_name.items()),
+                 reverse=True)[:8]
+    return busy_ns / 1e6, len(spans), [(k, t / 1e6, n) for t, k, n in ops]
+
+
+def phase_mapping_cli_size(textures) -> None:
+    """Phase 6c: run_mapping on CUDA at the CLI's frame size, the
+    renderer's default 24 frames of 480x640 (sift_tpu/sfm/mapping.py:424);
+    at least 90 % registered and one closure; the median wall time of 3
+    calls after a warm-up, by stage, each stage ending in a
+    synchronisation; then the device busy time and device events of one
+    call (torch.profiler)."""
+    from sift_tpu_torch.sfm.mapping import (mapping_ate,
+                                            render_corner_sequence,
+                                            run_mapping)
+    from sift_tpu_torch.utils.profiling import StageTimer
+    n_frames, hw = MAP_CLI
+    frames, k, gt = render_corner_sequence(n_frames=n_frames, size=hw,
+                                           textures=textures)
+    res = run_mapping(frames, k)
+    ate = mapping_ate(res, gt)
+    print(f"phase 6c mapping {n_frames}x{hw[0]}x{hw[1]} on the card: "
+          f"{_stats_line(res.stats, ate)}")
+    check(res.stats["n_registered"] >= 0.9 * n_frames,
+          f"{res.stats['n_registered']} of {n_frames} frames registered")
+    check(res.stats["n_closures"] >= 1, "no loop closure")
+    timer = StageTimer()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run_mapping(frames, k, timer=timer)
+        walls.append(time.perf_counter() - t0)
+    stages = timer.summary()
+    wall_ms = statistics.median(walls) * 1e3
+    print(f"phase 6c timing (median of 3 after a warm-up): run_mapping "
+          f"{wall_ms:.1f} ms; "
+          + ", ".join(f"{s} {v * 1e3:.1f} ms" for s, v in stages.items()))
+    busy, events, ops = _profile_busy(lambda: run_mapping(frames, k))
+    print(f"phase 6c profile of one run_mapping: device busy {busy:.1f} ms "
+          f"({100.0 * (1.0 - busy / wall_ms):.1f} % idle over the median "
+          f"call), {events} device events; largest device kernels (ms, "
+          f"calls): " + "; ".join(f"{n} {t:.1f} {c}" for n, t, c in ops))
+
+
 def _median_wall_ms(fn, runs: int = 10) -> float:
     import torch
     fn()
@@ -1253,6 +1477,10 @@ def main() -> int:
     phase_cpu_vs_card()
     pair_fps = phase_main_path(scene, obj, true, report)
     phase_batch(scene, report, pair_fps)
+    textures = mapping_textures()
+    phase_mapping_gated(textures)
+    phase_mapping_cpu_vs_card(textures)
+    phase_mapping_cli_size(textures)
 
     print(json.dumps({"kernels": [report[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 gray frame -> Gaussian/DoG pyramid -> 3x3x3 extrema -> subpixel refine
 -> orientation -> 128-d descriptors -> top-2 L1 match -> RANSAC
 homography -> object corners, for one frame or for B frames at once
-(sift.detect_and_compute_batch). sift_tpu (JAX) is the reference it is
-held against. Its kernels are CUDA C++ for sm_90a (csrc/), built with
+(sift.detect_and_compute_batch); and the mapping path on those
+features (geometry/, sfm/, eval.py: incremental SfM, loop closure, pose
+graph, bundle adjustment, export). sift_tpu (JAX) is the reference it
+is held against. Its kernels are CUDA C++ for sm_90a (csrc/), built with
 nvcc at first use; every kernel wrapper runs its plain PyTorch version
 for CPU tensors.
 """

@@ -142,18 +142,29 @@ def _gauss_newton(H: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return torch.cat([h8, torch.ones_like(h8[:1])]).reshape(3, 3)
 
 
-def gumbel_top4(valid: torch.Tensor, n_hypotheses: int,
-                generator: torch.Generator) -> torch.Tensor:
-    """(n_hypotheses, 4) int64 samples: per hypothesis, 4 distinct valid
-    indices, uniform (the Gumbel-top-k trick over the validity mask).
-    Ties keep the lower index first, as jax.lax.top_k."""
+def gumbel_top_k(valid: torch.Tensor, n_samples: int, k: int,
+                 generator: torch.Generator) -> torch.Tensor:
+    """(n_samples, k) int64 minimal samples: per row, k distinct valid
+    indices, uniform (the Gumbel-top-k trick over the validity mask),
+    drawn on valid's device. Ties keep the lower index first, as
+    jax.lax.top_k."""
     n = valid.shape[0]
-    u = torch.rand((n_hypotheses, n), generator=generator,
-                   device=valid.device)
+    u = torch.rand((n_samples, n), generator=generator, device=valid.device)
     tiny = torch.finfo(torch.float32).tiny
     g = -torch.log(-torch.log(torch.clamp(u, min=tiny)))
     g = torch.where(valid[None, :], g, -math.inf)
-    return torch.sort(g, dim=1, descending=True, stable=True)[1][:, :4]
+    return torch.sort(g, dim=1, descending=True, stable=True)[1][:, :k]
+
+
+def draw_samples(valid: torch.Tensor, n_samples: int, k: int, seed: int,
+                 samples: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A RANSAC call's (n_samples, k) minimal samples on valid's device:
+    `samples` when given (an injected draw), else gumbel_top_k from a
+    torch.Generator on that device seeded with `seed`."""
+    if samples is None:
+        gen = torch.Generator(device=valid.device).manual_seed(seed)
+        samples = gumbel_top_k(valid, n_samples, k, gen)
+    return torch.as_tensor(samples, device=valid.device).to(torch.long)
 
 
 def find_homography_ransac(src: torch.Tensor, dst: torch.Tensor,
@@ -175,10 +186,7 @@ def find_homography_ransac(src: torch.Tensor, dst: torch.Tensor,
     dst = dst.to(torch.float32)
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=src.device)
-    if samples is None:
-        gen = torch.Generator(device=src.device).manual_seed(seed)
-        samples = gumbel_top4(valid, n_hypotheses, gen)
-    samples = samples.to(device=src.device, dtype=torch.long)
+    samples = draw_samples(valid, n_hypotheses, 4, seed, samples)
     thr2 = threshold * threshold
 
     hs = _dlt4(src[samples], dst[samples])                  # (B, 3, 3)

@@ -140,14 +140,18 @@ def descriptor_hist_plain(padded: torch.Tensor, layer: torch.Tensor,
     rd = cfg.descr_patch_radius
     pn = 2 * rd + 3
     hw = tuple(s - 2 * (rd + 1) for s in padded.shape[1:])
-    parts = []
-    for s in range(0, layer.shape[0], chunk):
-        e = s + chunk
-        patch = gather_patches_plain(padded, layer[s:e], r[s:e], c[s:e], pn)
-        parts.append(_hist_chunk(patch, r[s:e], c[s:e], cos_t[s:e],
-                                 sin_t[s:e], radius[s:e], ori[s:e], hw, cfg))
-    hist = torch.cat(parts)
-    return torch.where(valid[:, None, None, None], hist, 0.0)
+    d, n = cfg.descr_width, cfg.descr_hist_bins
+    hist = torch.zeros((layer.shape[0], d + 2, d + 2, n + 2),
+                       dtype=torch.float32, device=padded.device)
+    # each row's histogram depends on its own keypoint only, so the
+    # invalid rows, zero in the result, are not computed
+    rows = valid.nonzero()[:, 0]
+    for s in range(0, rows.shape[0], chunk):
+        i = rows[s:s + chunk]
+        patch = gather_patches_plain(padded, layer[i], r[i], c[i], pn)
+        hist[i] = _hist_chunk(patch, r[i], c[i], cos_t[i], sin_t[i],
+                              radius[i], ori[i], hw, cfg)
+    return hist
 
 
 def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,

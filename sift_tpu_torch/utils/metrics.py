@@ -3,8 +3,7 @@
 the JAX package's).
 
 These are the acceptance gates from BASELINE.json (>=0.95 recall vs CPU
-SIFT, ATE within the reference-correspondence bound). camera_centers,
-which needs the Lie-group helpers, comes with geometry/lie.py.
+SIFT, ATE within the reference-correspondence bound).
 """
 
 from __future__ import annotations
@@ -12,6 +11,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 def match_recall(pred_pairs, ref_pairs) -> float:
@@ -110,3 +110,12 @@ def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray,
         r, t, s = umeyama_alignment(est, gt)
         est = (s * (est @ r.T)) + t
     return float(np.sqrt(((est - gt) ** 2).sum(axis=1).mean()))
+
+
+def camera_centers(cams: np.ndarray) -> np.ndarray:
+    """(C, 6) [w|t] world->cam poses -> (C, 3) camera centers -R^T t,
+    with R from the float32 so3_exp on the CPU, as sift_tpu's."""
+    from sift_tpu_torch.geometry import lie
+    cams = np.asarray(cams)
+    r = lie.so3_exp(torch.as_tensor(cams[:, :3], dtype=torch.float32)).numpy()
+    return -np.einsum("cji,cj->ci", r, cams[:, 3:])
