@@ -75,10 +75,31 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      torch.Generator): equal registered frames and closure pairs,
      ate_final and reproj_rmse within 10 % relative; 6c runs the CLI's
      frame size, 24 frames of 480x640, on the card (>= 90 % registered,
-     a closure), then prints the median wall time of 3 calls after a
+     a closure), then prints the wall time of one call after a
      warm-up by stage (front end, reconstruct, loop closure + pose
      graph, final BA) and the device busy time, device events and
-     largest device kernels of one call (torch.profiler).
+     largest device kernels of one call (torch.profiler);
+  7. the multi-device layer (sift_tpu_torch.parallel), each entry with
+     its launch counts and its median wall time of 3 calls after a
+     warm-up: 7a world 1 on NCCL in this process -- the B = 8 1080p
+     frames (equal to detect_and_compute_batch), both sharded matchers
+     on the 7 consecutive pairs (equal to match_ratio), observation- and
+     point-sharded BA on SCALING.json's 64 cameras / 4096 points / 65,536
+     observations, 3 LM x 10 CG (RMSE falls; RMSE, cameras and points
+     within BA_RMSE_RTOL / BA_CAM_ATOL / BA_PT_ATOL of bundle_adjust's),
+     the tiled detector on one 2160x3840 frame
+     (tiled_octaves 2, halo 64; the keypoint set equals
+     detect_and_compute's, no octave saturated), the partitioned pose
+     graph (cost falls) and mesh_health_check; 7b world 2 on the same
+     card, two processes on gloo with every collective staged through
+     the host (NCCL refuses two ranks on one card; a bare "cuda" maps
+     both ranks to card 0), each result equal to 7a's (BA within the
+     same bounds); 7c supervise_ba: 2 gloo ranks crash after a
+     checkpoint, 1 NCCL rank resumes and finishes with a lower RMSE.
+     Phase 2 also holds, at the 4K split's band shape at world 2
+     (1080 + 2 x 64 rows x 3840, both bands), the boxed compact scan and
+     select under torch.equal and the row-windowed K3-ori and K3-desc at
+     rtol 1e-5 against their plain versions.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}. Any
@@ -545,8 +566,10 @@ def print_sums(what, rows) -> None:
           f"{sum(r[5][0] for r in rows):.4f} ms")
 
 
-def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray) -> dict:
-    """Phase 2: each kernel against its plain version at main-path shapes."""
+def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
+                  img4k_np: np.ndarray) -> dict:
+    """Phase 2: each kernel against its plain version at main-path shapes
+    (and at the 4K split's band shape, phase_band_kernels)."""
     import torch
     from sift_tpu_torch import sift
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
@@ -689,6 +712,7 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray) -> dict:
     kp = sift.detect_octave(octs[0], dogs[0], 0, cfg.detect_caps[0], cfg,
                             cfg.out_caps[0])
     phase_fused_hist(octs[0], kp, rng, record)
+    phase_band_kernels(img4k_np)
 
     # K4 at 1536 x 1536 with sentinel rows and tied duplicates, within a
     # split and across splits; one subtraction and one absolute add per
@@ -1400,10 +1424,11 @@ def _profile_busy(fn) -> tuple:
 def phase_mapping_cli_size(textures) -> None:
     """Phase 6c: run_mapping on CUDA at the CLI's frame size, the
     renderer's default 24 frames of 480x640 (sift_tpu/sfm/mapping.py:424);
-    at least 90 % registered and one closure; the median wall time of 3
-    calls after a warm-up, by stage, each stage ending in a
-    synchronisation; then the device busy time and device events of one
-    call (torch.profiler)."""
+    at least 90 % registered and one closure; the wall time of one call
+    after a warm-up (one, not a median of several: it keeps the whole
+    script, phase 7 included, near 400 s on a slow host), by stage, each
+    stage ending in a synchronisation; then the device busy time and
+    device events of one call (torch.profiler)."""
     from sift_tpu_torch.sfm.mapping import (mapping_ate,
                                             render_corner_sequence,
                                             run_mapping)
@@ -1419,21 +1444,475 @@ def phase_mapping_cli_size(textures) -> None:
           f"{res.stats['n_registered']} of {n_frames} frames registered")
     check(res.stats["n_closures"] >= 1, "no loop closure")
     timer = StageTimer()
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run_mapping(frames, k, timer=timer)
-        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    run_mapping(frames, k, timer=timer)
+    wall_ms = (time.perf_counter() - t0) * 1e3
     stages = timer.summary()
-    wall_ms = statistics.median(walls) * 1e3
-    print(f"phase 6c timing (median of 3 after a warm-up): run_mapping "
+    print(f"phase 6c timing (one call after a warm-up): run_mapping "
           f"{wall_ms:.1f} ms; "
           + ", ".join(f"{s} {v * 1e3:.1f} ms" for s, v in stages.items()))
     busy, events, ops = _profile_busy(lambda: run_mapping(frames, k))
     print(f"phase 6c profile of one run_mapping: device busy {busy:.1f} ms "
-          f"({100.0 * (1.0 - busy / wall_ms):.1f} % idle over the median "
+          f"({100.0 * (1.0 - busy / wall_ms):.1f} % idle over the timed "
           f"call), {events} device events; largest device kernels (ms, "
           f"calls): " + "; ".join(f"{n} {t:.1f} {c}" for n, t, c in ops))
+
+
+# ------------------------------------------------------ phase 7: multi-device
+
+# the 4K frame of the spatial split (bench.py:449-450 sizes bands for a
+# 2160x3840 frame with halo 64) and its caps: 4x the 1080p scene's area
+# and blobs, caps that no octave of it fills (checked on every run)
+FRAME_4K_HW = (2160, 3840)
+SPATIAL_HALO = 64
+SPATIAL_TILED_OCTAVES = 2
+CAPS_4K = dict(detect_caps=(16384, 8192, 4096, 1024, 512),
+               out_caps=(8192, 4096, 4096, 512, 256))
+# SCALING.json's BA problem (bench_scaling.py:104-124, seed 0)
+BA_SHAPE = dict(c=64, p=4096, o=65536)
+BA_ITERS, BA_CG_ITERS = 3, 10
+# BA at world 2 against world 1, and world 1 against single-device
+# bundle_adjust: psum regroups the segment sums (and the card's
+# index_add_ adds in no fixed order), so float32 rounding moves the runs
+# apart. Bounds about 20x the spread of world 1 and 2 gloo runs on the
+# CPU (RMSE 1.7e-7 relative, cameras 5.3e-7, points 1.2e-5 absolute),
+# where BA itself moves cameras by 2.7e-2 and points by 0.44
+BA_RMSE_RTOL = 1e-5
+BA_CAM_ATOL = 1e-5
+BA_PT_ATOL = 2e-4
+# the partitioned pose graph: posegraph_dist.loop_graph, selftest's loop
+# trajectory, with 4 poses a rank at world 2 (32 poses), 24 rounds of 6
+# inner iterations
+GRAPH_POSES = 32
+TIMED_CALLS = 3
+ELASTIC_ITERS, ELASTIC_CHUNK = 6, 2
+
+
+def frame_4k() -> np.ndarray:
+    """The 2160x3840 synthetic frame (the 1080p scene's recipe at 4x the
+    area and blob count)."""
+    return to_gray(texture(*FRAME_4K_HW, seed=9, n_blobs=3200,
+                           amp=(30.0, 90.0), block=24, block_amp=20.0))
+
+
+def ba_problem_arrays(c: int, p: int, o: int, seed: int = 0) -> dict:
+    """bench_scaling.py's BA problem (the draws of its _make_problem in
+    their order) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-3, 3, p), rng.uniform(-3, 3, p),
+                    rng.uniform(6, 14, p)], 1).astype(np.float32)
+    cams = np.zeros((c, 6), np.float32)
+    cams[:, 3] = np.linspace(-1, 1, c)
+    cam_idx = rng.integers(0, c, o).astype(np.int32)
+    pt_idx = rng.integers(0, p, o).astype(np.int32)
+    xc = pts[pt_idx] + cams[cam_idx][:, 3:]
+    uv = (xc[:, :2] / xc[:, 2:3]
+          + rng.normal(0, 1e-3, (o, 2))).astype(np.float32)
+    fixed = np.zeros(c, bool)
+    fixed[0] = True
+    cams0 = cams + rng.normal(0, 0.01, cams.shape).astype(np.float32) \
+        * ~fixed[:, None]
+    return dict(cameras=cams0, points=pts, cam_idx=cam_idx, pt_idx=pt_idx,
+                uv=uv, mask=np.ones(o, bool), fixed_cams=fixed)
+
+
+def cfg_4k():
+    import dataclasses
+    from sift_tpu_torch.config import DEFAULT_CONFIG
+    return dataclasses.replace(DEFAULT_CONFIG, **CAPS_4K)
+
+
+def band_stack(img, gr0: int, hb: int, halo: int, cfg):
+    """Octave 0 of the haloed band whose core starts at global row gr0,
+    as parallel/spatial.py builds it from the exchanged halo (rows
+    outside the image zero): (gauss, dog, box, row window)."""
+    import torch
+    from sift_tpu_torch.ops import conv
+    from sift_tpu_torch.parallel import spatial
+    h, w = img.shape
+    gr0p = gr0 - halo
+    padded = torch.zeros((hb + 2 * halo, w), device=img.device)
+    lo, hi = max(gr0p, 0), min(gr0 + hb + halo, h)
+    padded[lo - gr0p:hi - gr0p] = img[lo:hi]
+    base = conv.gaussian_blur_multi(spatial._zero_beyond(padded, gr0p, h, w),
+                                    (cfg.init_blur_sigma,),
+                                    apply_quirk=False)[0]
+    layers = conv.gaussian_blur_multi(spatial._zero_beyond(base, gr0p, h, w),
+                                      cfg.scale_sigmas()[1:],
+                                      apply_quirk=False)
+    gauss = torch.cat([base[None], layers])
+    dog = (gauss[1:] - gauss[:-1]).contiguous()
+    box = spatial.candidate_box(hb, halo, gr0, h, w, dog.shape[1:], cfg)
+    return gauss, dog, box, (halo - gr0, h - gr0 + halo)
+
+
+def phase_band_kernels(img4k_np) -> None:
+    """Phase 2, the spatial path's kernel parameters at the band shape of
+    the 4K split at world 2 (1080 + 2*64 rows x 3840, octave 0): for
+    each of the two bands, the boxed compact scan and the select against
+    their plain versions under torch.equal (route and kernels), and
+    K3-ori and K3-desc with the band's row window against theirs at rtol
+    1e-5 / atol 1e-5 * max|hist| per valid row; each kernel also timed at
+    rank 0's band."""
+    import torch
+    import torch.nn.functional as F
+    from sift_tpu_torch import sift
+    from sift_tpu_torch.ops import extrema as ext
+    from sift_tpu_torch.ops.descriptor import descriptor_params
+    from sift_tpu_torch.ops.descr_hist_cuda import (descriptor_hist,
+                                                    descriptor_hist_plain)
+    from sift_tpu_torch.ops.extrema_cuda import (extrema_compact,
+                                                 extrema_compact_plain)
+    from sift_tpu_torch.ops.orientation import orientation_params
+    from sift_tpu_torch.ops.ori_hist_cuda import (orientation_hist,
+                                                  orientation_hist_plain)
+    cfg = cfg_4k()
+    img = torch.from_numpy(img4k_np).cuda()
+    hb = FRAME_4K_HW[0] // 2
+    nl = cfg.n_octave_layers
+    lines = []
+    for rank in range(2):
+        gauss, dog, box, rows = band_stack(img, rank * hb, hb, SPATIAL_HALO,
+                                           cfg)
+        cap = cfg.detect_caps[0]
+        got = ext.top_candidates(dog, cap, cfg, box=box)
+        want = ext.top_candidates_plain(dog, cap, cfg, box)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"band {rank}: the boxed route differs from its plain version")
+        keys, count = extrema_compact(dog[None], cfg, box)
+        pkeys, pcount = extrema_compact_plain(dog[None], cfg, box)
+        n = int(pcount[0])
+        check(torch.equal(count, pcount) and torch.equal(
+            torch.sort(keys[0, :n]).values, torch.sort(pkeys[0, :n]).values),
+            f"band {rank}: the boxed compact scan differs from its plain "
+            f"version")
+        kp = sift._octave_tail(gauss, dog, *got, 0, cfg, cfg.out_caps[0],
+                               row_bounds=rows)
+        rp, rd = cfg.ori_patch_radius, cfg.descr_patch_radius
+        po = F.pad(gauss[1:1 + nl], (rp + 1,) * 4)
+        radius, expf = orientation_params(kp.size * 0.5, cfg)
+        oargs = (po, kp.layer - 1, kp.r, kp.c, radius, expf, cfg, rows)
+        pd = F.pad(gauss[1:1 + nl], (rd + 1,) * 4)
+        prm = descriptor_params(kp.size, kp.angle, torch.ones(1, device="cuda"),
+                                tuple(gauss.shape[1:]), cfg)
+        dargs = (pd, kp.layer - 1, kp.r, kp.c, prm.cos_t, prm.sin_t,
+                 prm.radius, prm.ori, kp.valid, cfg, 64, rows)
+        errs = []
+        for name, fn, plain, args in (
+                ("K3-ori", orientation_hist, orientation_hist_plain, oargs),
+                ("K3-desc", descriptor_hist, descriptor_hist_plain, dargs)):
+            g, x = fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            v = kp.valid
+            g, x = g[v].reshape(int(v.sum()), -1), x[v].reshape(g[v].shape[0],
+                                                                 -1)
+            atol = 1e-5 * x.abs().amax(dim=1, keepdim=True)
+            check(bool(((g - x).abs() <= 1e-5 * x.abs() + atol).all()),
+                  f"band {rank}: {name} with rows {rows} disagrees with its "
+                  f"plain version")
+            errs.append(float((g - x).abs().max()))
+        times = ""
+        if rank == 0:
+            t = [median_ms(lambda: ext.top_candidates(dog, cap, cfg, box=box)),
+                 median_ms(lambda: orientation_hist(*oargs)),
+                 median_ms(lambda: descriptor_hist(*dargs))]
+            times = (f"; boxed scan + select {t[0]:.4f} ms, K3-ori "
+                     f"{t[1]:.4f} ms, K3-desc {t[2]:.4f} ms")
+        lines.append(f"band {rank} {tuple(dog.shape)} box {box} rows {rows}: "
+                     f"candidates {n}, valid keypoints {int(kp.valid.sum())}, "
+                     f"K3-ori max_abs_err {errs[0]!r}, K3-desc max_abs_err "
+                     f"{errs[1]!r}{times}")
+    torch.cuda.synchronize()
+    print("phase 2 spatial band kernels (4K split at world 2, octave 0; "
+          "boxed route and compact scan equal to their plain versions, "
+          "K3-ori/K3-desc within rtol 1e-5): " + "; ".join(lines))
+
+
+def multidevice_entries(mesh, scene_np, img4k_np, ba_arrays, graph):
+    """Phase 7's entries on this rank's mesh, each called once with the
+    launch counts set to 0 just before it, then timed (median wall time
+    of TIMED_CALLS calls after a warm-up, each ending in a device
+    synchronisation). Returns (results on the CPU, {entry: ms},
+    {entry: launches})."""
+    import torch
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.parallel import (batched_detect_and_compute,
+                                         bundle_adjust_point_sharded,
+                                         bundle_adjust_sharded,
+                                         detect_and_compute_tiled,
+                                         sharded_match_ratio,
+                                         sharded_match_ratio_train_sharded)
+    from sift_tpu_torch.parallel.dryrun import to_problem
+    from sift_tpu_torch.parallel.mesh import _to_host
+    from sift_tpu_torch.sfm.posegraph import PoseGraph
+    from sift_tpu_torch.sfm.posegraph_dist import \
+        optimize_pose_graph_partitioned
+    from sift_tpu_torch.utils.health import mesh_health_check
+    dev = mesh.device
+    frames = batch_frames(torch.from_numpy(scene_np).to(dev))
+    img4k = torch.from_numpy(img4k_np).to(dev)
+    prob = to_problem(ba_arrays, dev)
+    graph = PoseGraph(*(t.to(dev) for t in graph))
+    c4k = cfg_4k()
+    kp, d = batched_detect_and_compute(frames, mesh, cfg)
+
+    def pairs(matcher):
+        return [matcher(d[b], d[b - 1], mesh, q_valid=kp.valid[b],
+                        t_valid=kp.valid[b - 1], ratio=cfg.match_ratio)
+                for b in range(1, BATCH)]
+
+    entries = {
+        "frames": lambda: batched_detect_and_compute(frames, mesh, cfg),
+        "match_query": lambda: pairs(sharded_match_ratio),
+        "match_train": lambda: pairs(sharded_match_ratio_train_sharded),
+        "ba_obs": lambda: bundle_adjust_sharded(
+            prob, mesh, iters=BA_ITERS, cg_iters=BA_CG_ITERS),
+        "ba_point": lambda: bundle_adjust_point_sharded(
+            prob, mesh, iters=BA_ITERS, cg_iters=BA_CG_ITERS),
+        "spatial": lambda: detect_and_compute_tiled(
+            img4k, mesh, c4k, tiled_octaves=SPATIAL_TILED_OCTAVES,
+            halo=SPATIAL_HALO),
+        "posegraph": lambda: optimize_pose_graph_partitioned(
+            graph, mesh, rounds=24, inner_iters=6),
+        "health": lambda: mesh_health_check(mesh),
+    }
+    results, times, launches = {}, {}, {}
+    for name, fn in entries.items():
+        results[name], launches[name] = counted(fn)
+        results[name] = _to_host(results[name])
+        times[name] = _median_wall_ms(fn, TIMED_CALLS)
+    return results, times, launches
+
+
+def _rank_entries(mesh, scene_np, img4k_np, ba_arrays, graph):
+    """World 2's rank function (mesh.run_spmd): TF32 off as in the main
+    process, then multidevice_entries."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = multidevice_entries(mesh, scene_np, img4k_np, ba_arrays, graph)
+    return out + (str(mesh.device),)
+
+
+def kp_set(kp, d):
+    """The valid keypoints as rows (x, y, angle, size) sorted, and their
+    descriptors (tests/test_spatial.py's comparison)."""
+    v = kp.valid.cpu().numpy()
+    xy = np.stack([getattr(kp, f).cpu().numpy()[v]
+                   for f in ("x", "y", "angle", "size")], 1)
+    order = np.lexsort((xy[:, 2], xy[:, 1], xy[:, 0]))
+    return xy[order], d.cpu().numpy()[v][order]
+
+
+def same_set(a, b) -> bool:
+    (xa, da), (xb, db) = a, b
+    return (xa.shape == xb.shape and np.abs(xa - xb).max(initial=0) <= 1e-3
+            and np.abs(da - db).max(initial=0) <= 1e-3)
+
+
+def check_launches(label: str, launches: dict) -> None:
+    """The kernels each entry must and must not launch."""
+    need = {"frames": ("K1-batch", "K2-compact", "K2-select", "K3-ori",
+                       "K3-desc"),
+            "match_query": ("K4",), "match_train": ("K4",),
+            "spatial": ("K1", "K2-compact", "K2-select", "K3-ori",
+                        "K3-desc")}
+    for entry, kernels in need.items():
+        got = launches[entry]
+        check(all(got[k] > 0 for k in kernels),
+              f"{label} {entry}: a kernel of its path did not launch: {got}")
+    for entry, got in launches.items():
+        check(got["K2"] == 0 and got["K3"] == 0,
+              f"{label} {entry}: the dense K2 or the bare K3 launched: {got}")
+
+
+def nonzero(launches: dict) -> dict:
+    """{entry: {kernel: launches}} without the zero counts."""
+    return {e: {k: n for k, n in c.items() if n} for e, c in launches.items()}
+
+
+def check_ba(label: str, got, ref) -> tuple:
+    """Two BA results within BA_RMSE_RTOL (RMSE, relative), BA_CAM_ATOL
+    (cameras) and BA_PT_ATOL (points); returns the three spreads."""
+    from sift_tpu_torch.sfm.ba import reproj_rmse
+    r, r1 = float(reproj_rmse(got)), float(reproj_rmse(ref))
+    spread = (abs(r - r1) / r1,
+              float((got.cameras.cpu() - ref.cameras.cpu()).abs().max()),
+              float((got.points.cpu() - ref.points.cpu()).abs().max()))
+    check(spread[0] <= BA_RMSE_RTOL and spread[1] <= BA_CAM_ATOL
+          and spread[2] <= BA_PT_ATOL,
+          f"{label}: RMSE {r} vs {r1}; (RMSE relative, cameras, points) "
+          f"spread {spread} past ({BA_RMSE_RTOL}, {BA_CAM_ATOL}, "
+          f"{BA_PT_ATOL})")
+    return spread
+
+
+def compare_worlds(label: str, got: dict, ref: dict) -> dict:
+    """World 2's results against world 1's: frames and matches equal,
+    the tiled keypoint set equal, BA within check_ba's bounds. Returns
+    {BA entry: spread}."""
+    import torch
+    (kp, d), (kp1, d1) = got["frames"], ref["frames"]
+    check(all(torch.equal(getattr(kp, f), getattr(kp1, f))
+              for f in ("x", "y", "size", "angle", "response", "octave",
+                        "layer", "r", "c", "valid"))
+          and torch.equal(d, d1), f"{label}: frames differ from world 1's")
+    for m in ("match_query", "match_train"):
+        check(all(all(torch.equal(a, b) for a, b in zip(x, y))
+                  for x, y in zip(got[m], ref[m])),
+              f"{label}: {m} differs from world 1's")
+    check(same_set(kp_set(*got["spatial"]), kp_set(*ref["spatial"])),
+          f"{label}: the tiled keypoint set differs from world 1's")
+    out = {m: check_ba(f"{label} {m} vs world 1", got[m], ref[m])
+           for m in ("ba_obs", "ba_point")}
+    check(got["health"] is True, f"{label}: mesh_health_check failed")
+    return out
+
+
+def phase_multidevice(scene_np, img4k_np) -> dict:
+    """Phase 7: the multi-device layer. 7a: world 1 on NCCL, in this
+    process; 7b: world 2 on the one card (gloo with CUDA tensors, every
+    collective staged through the host), two processes; 7c: elastic BA
+    shrinking 2 -> 1. Returns {entry: launches at world 1}."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from sift_tpu_torch import sift
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops import match as match_mod
+    from sift_tpu_torch.parallel.dryrun import to_problem
+    from sift_tpu_torch.parallel.mesh import (HOST_STAGED, default_mesh,
+                                              init_process, run_spmd)
+    from sift_tpu_torch.sfm.ba import bundle_adjust, reproj_rmse
+    from sift_tpu_torch.sfm.posegraph import pose_graph_cost
+    from sift_tpu_torch.sfm.posegraph_dist import loop_graph
+
+    ba_arrays = ba_problem_arrays(**BA_SHAPE)
+    graph = loop_graph(GRAPH_POSES)
+    args = (scene_np, img4k_np, ba_arrays, graph)
+    dev = torch.device("cuda:0")
+
+    # 7a: world 1 on NCCL
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process(0, 1, os.path.join(tmp, "store"), "nccl", "cuda:0")
+        try:
+            res1, ms1, launches1 = multidevice_entries(
+                default_mesh(device="cuda:0"), *args)
+        finally:
+            dist.destroy_process_group()
+    check_launches("7a", launches1)
+    # against the single-device entry points
+    frames = batch_frames(torch.from_numpy(scene_np).to(dev))
+    kp, d = sift.detect_and_compute_batch(frames, cfg)
+    kp1, d1 = res1["frames"]
+    check(all(torch.equal(getattr(kp1, f), getattr(kp, f).cpu())
+              for f in ("x", "y", "angle", "valid", "r", "c"))
+          and torch.equal(d1, d.cpu()),
+          "7a frames differ from detect_and_compute_batch")
+    for m in ("match_query", "match_train"):
+        for b, got in zip(range(1, BATCH), res1[m]):
+            want = match_mod.match_ratio(d[b], d[b - 1], q_valid=kp.valid[b],
+                                         t_valid=kp.valid[b - 1],
+                                         ratio=cfg.match_ratio)
+            check(all(torch.equal(x, y.cpu()) for x, y in zip(got, want)),
+                  f"7a {m} pair {b} differs from match_ratio")
+    prob = to_problem(ba_arrays, dev)
+    rmse0 = float(reproj_rmse(prob))
+    single_ba = bundle_adjust(prob, iters=BA_ITERS, cg_iters=BA_CG_ITERS)
+    single = float(reproj_rmse(single_ba))
+    rmse = {m: float(reproj_rmse(res1[m])) for m in ("ba_obs", "ba_point")}
+    check(all(r < rmse0 for r in rmse.values()),
+          f"7a BA RMSE {rmse} did not fall from {rmse0}")
+    spread1 = {m: check_ba(f"7a {m} vs bundle_adjust", res1[m], single_ba)
+               for m in ("ba_obs", "ba_point")}
+    c4k = cfg_4k()
+    img4k = torch.from_numpy(img4k_np).to(dev)
+    kps, ds = sift.detect_and_compute(img4k, c4k)
+    sat = sift.octave_saturation(kps, c4k).cpu().numpy()
+    from sift_tpu_torch.ops import pyramid
+    csat = sift.candidate_saturation(
+        pyramid.build_gaussian_pyramid(img4k, c4k), c4k).cpu().numpy()
+    per_octave = [int(kps.valid[a:a + n].sum()) for a, n in zip(
+        np.cumsum((0,) + c4k.out_caps[:-1]), c4k.out_caps)]
+    check(not sat.any() and not csat.any(),
+          f"4K single-device run saturates: out caps {sat} (valid per "
+          f"octave {per_octave} of {c4k.out_caps}), candidates {csat}")
+    tiled_set = kp_set(*res1["spatial"])
+    check(same_set(tiled_set, kp_set(kps, ds)),
+          f"7a tiled keypoint set ({len(tiled_set[0])}) differs from "
+          f"detect_and_compute's ({int(kps.count())})")
+    c0, c1 = (float(pose_graph_cost(g)) for g in (graph, res1["posegraph"]))
+    check(c1 < 0.02 * c0, f"7a pose graph cost {c1} from {c0}")
+    check(res1["health"] is True, "7a mesh_health_check failed")
+    print(f"phase 7a world 1 (nccl, cuda:0): frames and both matchers "
+          f"equal to detect_and_compute_batch / match_ratio; BA RMSE "
+          f"obs {rmse['ba_obs']!r} point {rmse['ba_point']!r} "
+          f"(single-device {single!r}, initial {rmse0!r}; (RMSE relative, "
+          f"cameras, points) spread from bundle_adjust {spread1}, bounds "
+          f"({BA_RMSE_RTOL}, {BA_CAM_ATOL}, {BA_PT_ATOL})); 4K tiled "
+          f"keypoints {len(tiled_set[0])} equal to detect_and_compute's as "
+          f"a set (valid per octave {per_octave} of out caps "
+          f"{c4k.out_caps}, none saturated); pose graph cost {c0!r} -> "
+          f"{c1!r}; "
+          f"health ok; launches {nonzero(launches1)}; wall ms (median of "
+          f"{TIMED_CALLS} after a warm-up) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms1.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
+
+    # 7b: world 2 on the one card, gloo with CUDA tensors
+    t0 = time.perf_counter()
+    # a bare "cuda": rank r on card r % 1, both on cuda:0
+    out = run_spmd(_rank_entries, 2, args=args, backend="gloo",
+                   device="cuda", timeout_s=300)
+    spreads, costs = [], []
+    for r, (res2, ms2, launches2, rank_dev) in enumerate(out):
+        check(rank_dev == "cuda:0", f"7b rank {r} ran on {rank_dev}")
+        check_launches(f"7b rank {r}", launches2)
+        spreads.append(compare_worlds(f"7b rank {r}", res2, res1))
+        costs.append(float(pose_graph_cost(res2["posegraph"])))
+        check(costs[-1] < 0.02 * c0,
+              f"7b rank {r} pose graph cost {costs[-1]} from {c0}")
+    res2, ms2, launches2, _ = out[0]
+    print(f"phase 7b world 2 (gloo, both ranks on cuda:0; collectives "
+          f"staged through the host: {', '.join(HOST_STAGED)}): each rank's "
+          f"frames, matches and tiled keypoints equal world 1's, BA "
+          f"(RMSE relative, cameras, points) spread from world 1 by rank "
+          f"{spreads} within ({BA_RMSE_RTOL}, {BA_CAM_ATOL}, {BA_PT_ATOL}), "
+          f"pose graph cost {c0!r} -> {costs}, health ok; rank 0 launches "
+          f"{nonzero(launches2)}; "
+          f"rank 0 wall ms (median of {TIMED_CALLS} after a warm-up) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms2.items())
+          + f" ({time.perf_counter() - t0:.1f} s with process start)")
+
+    # 7c: elastic BA, 2 ranks (gloo, one card) crash after a checkpoint,
+    # 1 rank (nccl) resumes
+    from sift_tpu_torch.parallel.elastic import supervise_ba
+    from sift_tpu_torch.sfm import checkpoint as ck
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = ck.save_ba(os.path.join(tmp, "prob"), to_problem(ba_arrays,
+                                                                 "cpu"), 0)
+        spawned = []
+        final, restarts = supervise_ba(
+            path, os.path.join(tmp, "ck"), total_iters=ELASTIC_ITERS,
+            chunk_iters=ELASTIC_CHUNK, cg_iters=BA_CG_ITERS, n_devices=2,
+            backend={2: "gloo", 1: "nccl"}, device="cuda",
+            inject_crash_step=ELASTIC_CHUNK, worker_timeout=300,
+            on_spawn=spawned.append)
+        out_prob, step = ck.load_ba(final)
+    codes = [p.returncode for p in spawned]
+    r_end = float(reproj_rmse(out_prob))
+    check(restarts == 1 and codes == [17, 17, 0] and step == ELASTIC_ITERS
+          and r_end < rmse0,
+          f"7c elastic: restarts {restarts}, exit codes {codes}, step {step}, "
+          f"RMSE {r_end} from {rmse0}")
+    print(f"phase 7c elastic BA: 2 ranks (gloo, cuda) crashed after the "
+          f"step-{ELASTIC_CHUNK} checkpoint (exit codes {codes[:2]}), 1 rank "
+          f"(nccl) resumed and finished at step {step}: restarts {restarts}, "
+          f"RMSE {rmse0!r} -> {r_end!r} ({time.perf_counter() - t0:.1f} s)")
+    return launches1
 
 
 def _median_wall_ms(fn, runs: int = 10) -> float:
@@ -1473,7 +1952,8 @@ def main() -> int:
           f"{lib.relative_to(lib.parents[3])}")
 
     scene, obj, true = full_size_inputs()
-    report = phase_kernels(scene, obj)
+    img4k = frame_4k()
+    report = phase_kernels(scene, obj, img4k)
     phase_cpu_vs_card()
     pair_fps = phase_main_path(scene, obj, true, report)
     phase_batch(scene, report, pair_fps)
@@ -1481,6 +1961,7 @@ def main() -> int:
     phase_mapping_gated(textures)
     phase_mapping_cpu_vs_card(textures)
     phase_mapping_cli_size(textures)
+    phase_multidevice(scene, img4k)
 
     print(json.dumps({"kernels": [report[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -124,7 +124,7 @@ descr_hist_kernel(const float* __restrict__ src,
                   const float* __restrict__ ori,
                   const unsigned char* __restrict__ valid,
                   float* __restrict__ out, int L, int Hp, int Wp, int rd,
-                  int h, int w) {
+                  int w, int row_lo, int row_hi) {
   extern __shared__ float smem[];
   const int p = 2 * rd + 3;
   float* win = smem;                      // (p, p)
@@ -160,8 +160,8 @@ descr_hist_kernel(const float* __restrict__ src,
       const float rbin = __fadd_rn(r_rot, kBinShift);
       const float cbin = __fadd_rn(c_rot, kBinShift);
       const int rr = kr + ii, cc = kc + jj;
-      if (rbin > -1.f && rbin < kD && cbin > -1.f && cbin < kD && rr > 0
-          && rr < h - 1 && cc > 0 && cc < w - 1) {
+      if (rbin > -1.f && rbin < kD && cbin > -1.f && cbin < kD &&
+          rr > row_lo && rr < row_hi - 1 && cc > 0 && cc < w - 1) {
         // sample (ii, jj) sits at window (i + 1, j + 1)
         const int i = ii + rd, j = jj + rd;
         const float dx = __fsub_rn(win[(i + 1) * p + j + 2],
@@ -202,14 +202,16 @@ descr_hist_kernel(const float* __restrict__ src,
 
 // src (L, Hp, Wp) padded by rd + 1 around an (h, w) image; layer (the
 // stack index), row, col, radius (N,) int32; cos_t, sin_t, ori (N,)
-// float32; valid (N,) bool -> out (N, 6, 6, 10).
+// float32; valid (N,) bool -> out (N, 6, 6, 10). A sample counts where
+// its row lies strictly inside (row_lo, row_hi - 1), as in
+// sift_ori_hist: (0, h) for a whole image.
 extern "C" int sift_descr_hist(const float* src, const int* layer,
                                const int* row, const int* col,
                                const float* cos_t, const float* sin_t,
                                const int* radius, const float* ori,
                                const unsigned char* valid, float* out, int N,
-                               int L, int Hp, int Wp, int rd,
-                               void* stream_ptr) {
+                               int L, int Hp, int Wp, int rd, int row_lo,
+                               int row_hi, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (N == 0) return cudaSuccess;
   const int p = 2 * rd + 3;
@@ -224,6 +226,7 @@ extern "C" int sift_descr_hist(const float* src, const int* layer,
   }
   descr_hist_kernel<<<N, kThreads, smem, stream>>>(src, layer, row, col, cos_t,
                                                    sin_t, radius, ori, valid,
-                                                   out, L, Hp, Wp, rd, h, w);
+                                                   out, L, Hp, Wp, rd, w,
+                                                   row_lo, row_hi);
   return cudaGetLastError();
 }

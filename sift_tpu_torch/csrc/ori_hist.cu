@@ -55,7 +55,7 @@ ori_hist_kernel(const float* __restrict__ src, const int* __restrict__ layer,
                 const int* __restrict__ radius,
                 const float* __restrict__ expf_scale,
                 float* __restrict__ out, int L, int Hp, int Wp, int rp,
-                int h, int w) {
+                int w, int row_lo, int row_hi) {
   extern __shared__ float smem[];
   const int p = 2 * rp + 3;
   float* win = smem;                      // (p, p)
@@ -83,7 +83,7 @@ ori_hist_kernel(const float* __restrict__ src, const int* __restrict__ layer,
     if (s < nsamp) {
       const int ii = s / side - R, jj = s % side - R;
       const int yy = kr + ii, xx = kc + jj;
-      if (yy > 0 && yy < h - 1 && xx > 0 && xx < w - 1) {
+      if (yy > row_lo && yy < row_hi - 1 && xx > 0 && xx < w - 1) {
         // sample (ii, jj) sits at window (i + 1, j + 1)
         const int i = ii + rp, j = jj + rp;
         const float dx = __fsub_rn(win[(i + 1) * p + j + 2],
@@ -118,12 +118,15 @@ ori_hist_kernel(const float* __restrict__ src, const int* __restrict__ layer,
 
 // src (L, Hp, Wp) padded by rp + 1 around an (h, w) image; layer (the
 // stack index), row, col, radius (N,) int32; expf_scale (N,) float32
-// -> out (N, 36).
+// -> out (N, 36). A sample counts where its row lies strictly inside
+// (row_lo, row_hi - 1): (0, h) for a whole image; a row band of a larger
+// image passes the local rows of that image's first row and of one past
+// its last, which may lie outside the band (compared, never clamped).
 extern "C" int sift_ori_hist(const float* src, const int* layer,
                              const int* row, const int* col,
                              const int* radius, const float* expf_scale,
                              float* out, int N, int L, int Hp, int Wp, int rp,
-                             void* stream_ptr) {
+                             int row_lo, int row_hi, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (N == 0) return cudaSuccess;
   const int p = 2 * rp + 3;
@@ -138,6 +141,6 @@ extern "C" int sift_ori_hist(const float* src, const int* layer,
   }
   ori_hist_kernel<<<N, kThreads, smem, stream>>>(src, layer, row, col, radius,
                                                  expf_scale, out, L, Hp, Wp,
-                                                 rp, h, w);
+                                                 rp, w, row_lo, row_hi);
   return cudaGetLastError();
 }

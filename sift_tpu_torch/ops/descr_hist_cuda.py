@@ -9,7 +9,8 @@ exact-f32 einsum). `descriptor_hist` launches the CUDA kernel
 (N, d+2, d+2, n+2) histogram of calcSIFTDescriptor (src/sift.cpp:579-753)
 before the circular fold, zero for slots with valid false, with the
 per-sample arithmetic of the plain version; they differ only in the
-order of the sums.
+order of the sums. A sample counts where its row lies strictly inside
+(row_lo, row_hi - 1), (0, h) by default (ori_hist_cuda.row_window).
 
 The plain version writes the scatter as a contraction of soft one-hots
 in float32,
@@ -28,6 +29,7 @@ from sift_tpu_torch import _build
 from sift_tpu_torch.config import SIFTConfig
 from sift_tpu_torch.ops.mathutil import fast_atan2_deg
 from sift_tpu_torch.ops.ori_gather_cuda import gather_patches_plain
+from sift_tpu_torch.ops.ori_hist_cuda import row_window
 
 _KERNEL_WIDTH = 4     # csrc/descr_hist.cu: kD
 _KERNEL_BINS = 8      # csrc/descr_hist.cu: kN
@@ -61,13 +63,14 @@ def _soft_onehot(i0: torch.Tensor, frac: torch.Tensor, width: int,
 def _hist_chunk(patch: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
                 cos_t: torch.Tensor, sin_t: torch.Tensor,
                 radius: torch.Tensor, ori: torch.Tensor, hw: tuple,
-                cfg: SIFTConfig) -> torch.Tensor:
+                window: tuple, cfg: SIFTConfig) -> torch.Tensor:
     """Raw histograms of one chunk: (B, pn, pn) patches ->
     (B, d+2, d+2, n+2)."""
     d = cfg.descr_width
     n = cfg.descr_hist_bins
     rd = cfg.descr_patch_radius
     h, w = hw
+    row_lo, row_hi = window
     b = patch.shape[0]
 
     off = torch.arange(-rd, rd + 1, dtype=torch.int32, device=patch.device)
@@ -89,7 +92,7 @@ def _hist_chunk(patch: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
     rr = r0[:, None, None] + ii_i
     cc = c0[:, None, None] + jj_i
     m = ((rbin > -1) & (rbin < d) & (cbin > -1) & (cbin < d)
-         & (rr > 0) & (rr < h - 1) & (cc > 0) & (cc < w - 1)
+         & (rr > row_lo) & (rr < row_hi - 1) & (cc > 0) & (cc < w - 1)
          & (ii_i.abs() <= radius) & (jj_i.abs() <= radius))
 
     wgt = torch.exp((c_rot * c_rot + r_rot * r_rot) * (-1.0 / (d * d * 0.5)))
@@ -127,19 +130,21 @@ def descriptor_hist_plain(padded: torch.Tensor, layer: torch.Tensor,
                           cos_t: torch.Tensor, sin_t: torch.Tensor,
                           radius: torch.Tensor, ori: torch.Tensor,
                           valid: torch.Tensor, cfg: SIFTConfig,
-                          chunk: int = 64) -> torch.Tensor:
+                          chunk: int = 64, row_bounds=None) -> torch.Tensor:
     """Plain PyTorch K3-desc, `chunk` keypoints at a time.
 
     padded: (L, Hp, Wp), the octave's layers padded by
     descr_patch_radius + 1; layer: (N,) index into it; r, c: (N,)
     octave pixel; cos_t, sin_t, radius (int32), ori: (N,) from
-    descriptor.descriptor_params; valid: (N,) bool. Returns
+    descriptor.descriptor_params; valid: (N,) bool; row_bounds:
+    optional (lo, hi) rows of the true image. Returns
     (N, d+2, d+2, n+2), zero where valid is false.
     """
     _check_args(padded, layer, r, c, cos_t, sin_t, radius, ori, valid, cfg)
     rd = cfg.descr_patch_radius
     pn = 2 * rd + 3
     hw = tuple(s - 2 * (rd + 1) for s in padded.shape[1:])
+    window = row_window(row_bounds, hw[0])
     d, n = cfg.descr_width, cfg.descr_hist_bins
     hist = torch.zeros((layer.shape[0], d + 2, d + 2, n + 2),
                        dtype=torch.float32, device=padded.device)
@@ -150,7 +155,7 @@ def descriptor_hist_plain(padded: torch.Tensor, layer: torch.Tensor,
         i = rows[s:s + chunk]
         patch = gather_patches_plain(padded, layer[i], r[i], c[i], pn)
         hist[i] = _hist_chunk(patch, r[i], c[i], cos_t[i], sin_t[i],
-                              radius[i], ori[i], hw, cfg)
+                              radius[i], ori[i], hw, window, cfg)
     return hist
 
 
@@ -158,7 +163,8 @@ def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,
                     r: torch.Tensor, c: torch.Tensor, cos_t: torch.Tensor,
                     sin_t: torch.Tensor, radius: torch.Tensor,
                     ori: torch.Tensor, valid: torch.Tensor,
-                    cfg: SIFTConfig, chunk: int = 64) -> torch.Tensor:
+                    cfg: SIFTConfig, chunk: int = 64,
+                    row_bounds=None) -> torch.Tensor:
     """K3-desc: (N, d+2, d+2, n+2) raw descriptor histograms (arguments
     as descriptor_hist_plain). CPU tensors take the plain version, in
     chunks of `chunk`; CUDA tensors launch the kernel once, one block
@@ -166,7 +172,8 @@ def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,
     _check_args(padded, layer, r, c, cos_t, sin_t, radius, ori, valid, cfg)
     if padded.device.type == "cpu":
         return descriptor_hist_plain(padded, layer, r, c, cos_t, sin_t,
-                                     radius, ori, valid, cfg, chunk)
+                                     radius, ori, valid, cfg, chunk,
+                                     row_bounds)
     if padded.device.type != "cuda":
         raise ValueError(f"descriptor_hist: unsupported device "
                          f"{padded.device}")
@@ -182,6 +189,8 @@ def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,
                          for v in (cos_t, sin_t, ori))
     valid = valid.to(device=dev, dtype=torch.bool).contiguous()
     nlay, hp, wp = padded.shape
+    row_lo, row_hi = row_window(row_bounds,
+                                hp - 2 * (cfg.descr_patch_radius + 1))
     k = layer.shape[0]
     out = torch.empty((k, d + 2, d + 2, n + 2), dtype=torch.float32,
                       device=dev)
@@ -190,7 +199,7 @@ def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,
             padded.data_ptr(), layer.data_ptr(), r.data_ptr(), c.data_ptr(),
             cos_t.data_ptr(), sin_t.data_ptr(), radius.data_ptr(),
             ori.data_ptr(), valid.data_ptr(), out.data_ptr(), k, nlay, hp,
-            wp, cfg.descr_patch_radius,
+            wp, cfg.descr_patch_radius, row_lo, row_hi,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sift_descr_hist")
     descriptor_hist.launches += 1

@@ -85,11 +85,13 @@ def normalize_hist(hist: torch.Tensor, valid: torch.Tensor,
 
 def descriptors_octave(gauss: torch.Tensor, kp: Keypoints,
                        cfg: SIFTConfig = DEFAULT_CONFIG,
-                       chunk: int = 64) -> torch.Tensor:
+                       chunk: int = 64, row_bounds=None) -> torch.Tensor:
     """Descriptors for one octave's keypoint batch: (N,) -> (N, 128).
 
     kp fields are octave space (integer centre r, c; layer; size);
-    invalid slots yield zero rows.
+    invalid slots yield zero rows. row_bounds: optional (lo, hi) local
+    rows of the true image, as in orientation.orientation_peaks; samples
+    outside are out-of-image samples (src/sift.cpp:616).
     """
     rd = cfg.descr_patch_radius
     nl = cfg.n_octave_layers
@@ -102,5 +104,5 @@ def descriptors_octave(gauss: torch.Tensor, kp: Keypoints,
     prm = descriptor_params(kp.size, kp.angle, inv_scale, (h, w), cfg)
     hist = descriptor_hist(padded, kp.layer - 1, kp.r, kp.c, prm.cos_t,
                            prm.sin_t, prm.radius, prm.ori, kp.valid, cfg,
-                           chunk)
+                           chunk, row_bounds)
     return normalize_hist(hist, kp.valid, cfg)

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from sift_tpu_torch.config import SIFTConfig, DEFAULT_CONFIG
 from sift_tpu_torch.ops.extrema_cuda import (  # noqa: F401
-    _check_device, check_field, extrema_compact, extrema_mask,
+    _check_device, check_box, check_field, extrema_compact, extrema_mask,
     extrema_scores, extrema_scores_batch, extrema_scores_batch_plain,
     extrema_scores_plain, select_candidates, unpack_indices)
 
@@ -43,26 +43,35 @@ def stable_top_k(x: torch.Tensor, k: int
 
 
 def top_candidates_plain(dog: torch.Tensor, cap: int,
-                         cfg: SIFTConfig = DEFAULT_CONFIG) -> Candidates:
+                         cfg: SIFTConfig = DEFAULT_CONFIG,
+                         box=None) -> Candidates:
     """top_candidates by the plain K2 and a stable sort of its scores."""
-    return _decode(extrema_scores_plain(dog, cfg).reshape(-1), cap,
-                   dog.shape)
+    if box is None:
+        score = extrema_scores_plain(dog, cfg)
+    else:
+        val = dog[1:1 + cfg.n_octave_layers]
+        score = torch.where(extrema_mask(dog, cfg, box), val.abs(), -1.0)
+    return _decode(score.reshape(-1), cap, dog.shape)
 
 
 def top_candidates(dog: torch.Tensor, cap: int,
-                   cfg: SIFTConfig = DEFAULT_CONFIG) -> Candidates:
+                   cfg: SIFTConfig = DEFAULT_CONFIG,
+                   box=None) -> Candidates:
     """Up to `cap` NMS candidates ranked by |DoG response|.
 
     Returns (layer, r, c, valid), each (cap,); layer is the absolute
     DoG layer index (1..nL). Slots past the candidate count are invalid.
-    CPU tensors take top_candidates_plain; CUDA tensors launch the
-    compact scan and the select kernel. A field (nL*H*W) of more than
-    2^31 - 1 pixels raises on every device.
+    box: (r_lo, r_hi, c_lo, c_hi), the pixels that may be candidates;
+    default the border box, and any other box must lie inside it
+    (extrema_cuda.check_box). CPU tensors take top_candidates_plain;
+    CUDA tensors launch the compact scan and the select kernel. A field
+    (nL*H*W) of more than 2^31 - 1 pixels raises on every device.
     """
     check_field(cfg.n_octave_layers, dog.shape[-2:])
+    check_box(box, cfg, dog.shape[-2:])
     if _check_device(dog, "top_candidates"):
-        return top_candidates_plain(dog, cap, cfg)
-    return tuple(a[0] for a in _compact_select(dog[None], cap, cfg))
+        return top_candidates_plain(dog, cap, cfg, box)
+    return tuple(a[0] for a in _compact_select(dog[None], cap, cfg, box))
 
 
 def top_candidates_batch_plain(dog: torch.Tensor, cap: int,
@@ -84,9 +93,9 @@ def top_candidates_batch(dog: torch.Tensor, cap: int,
     return _compact_select(dog, cap, cfg)
 
 
-def _compact_select(dog: torch.Tensor, cap: int, cfg: SIFTConfig
-                    ) -> Candidates:
-    keys, count = extrema_compact(dog, cfg)
+def _compact_select(dog: torch.Tensor, cap: int, cfg: SIFTConfig,
+                    box=None) -> Candidates:
+    keys, count = extrema_compact(dog, cfg, box)
     return select_candidates(keys, count, cap, dog.shape[-2:])
 
 

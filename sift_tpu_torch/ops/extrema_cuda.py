@@ -9,7 +9,9 @@ PyTorch version for a CPU tensor, and keeps its own launch count:
   1..nL, |v| where the pixel is a candidate (`extrema_mask`) and -1
   elsewhere; the Pallas kernels' output.
 - `extrema_compact` (compact, B frames): no score field; each frame's
-  candidate keys (`pack_keys`) in a list, with its count.
+  candidate keys (`pack_keys`) in a list, with its count. It takes a
+  candidate box inside the border box (`check_box`): a row band of a
+  larger image (parallel/spatial.py) scans only the rows it owns.
 - `select_candidates` (B frames): the top `cap` keys of each list as
   (layer, r, c, valid), the slots a stable descending sort of the dense
   scores gives (ops/extrema.py:top_candidates_plain), without a host
@@ -55,6 +57,24 @@ def check_field(nl: int, hw) -> None:
                          f"than {MAX_FIELD} pixels")
 
 
+def check_box(box, cfg: SIFTConfig, hw) -> tuple:
+    """`box` (r_lo, r_hi, c_lo, c_hi) as Python ints, or for None the
+    border box (img_border pixels inside the (H, W) frame); raise unless
+    it lies inside the border box (r_hi <= r_lo or c_hi <= c_lo is an
+    empty box). The kernel's neighbour loads stay inside the frame only
+    while r_lo, c_lo >= 1; both devices refuse the same boxes."""
+    b = cfg.img_border
+    outer = (b, hw[0] - b, b, hw[1] - b)
+    if box is None:
+        return outer
+    r_lo, r_hi, c_lo, c_hi = (int(v) for v in box)
+    if not (outer[0] <= r_lo and r_hi <= outer[1] and outer[2] <= c_lo
+            and c_hi <= outer[3]):
+        raise ValueError(f"candidate box {(r_lo, r_hi, c_lo, c_hi)} is not "
+                         f"inside the border box {outer}")
+    return r_lo, r_hi, c_lo, c_hi
+
+
 def _check_device(x: torch.Tensor, what: str) -> bool:
     """True for a CPU tensor, False for a CUDA one; raise otherwise."""
     if x.device.type == "cpu":
@@ -64,10 +84,11 @@ def _check_device(x: torch.Tensor, what: str) -> bool:
     return False
 
 
-def extrema_mask(dog: torch.Tensor, cfg: SIFTConfig = DEFAULT_CONFIG
-                 ) -> torch.Tensor:
+def extrema_mask(dog: torch.Tensor, cfg: SIFTConfig = DEFAULT_CONFIG,
+                 box=None) -> torch.Tensor:
     """(..., D, H, W) DoG stack(s) -> (..., nL, H, W) candidate mask for
-    layers 1..nL; a leading batch axis is carried through."""
+    layers 1..nL inside `box` (check_box; default the border box); a
+    leading batch axis is carried through."""
     nl = cfg.n_octave_layers
     h, w = dog.shape[-2:]
     val = dog[..., 1:1 + nl, :, :]
@@ -84,24 +105,25 @@ def extrema_mask(dog: torch.Tensor, cfg: SIFTConfig = DEFAULT_CONFIG
                 nmin = torch.minimum(nmin, s)
     mask = (val.abs() > cfg.nms_threshold) & (
         ((val > 0) & (val >= nmax)) | ((val < 0) & (val <= nmin)))
-    b = cfg.img_border
+    r_lo, r_hi, c_lo, c_hi = check_box(box, cfg, (h, w))
     rr = torch.arange(h, device=dog.device)
     cc = torch.arange(w, device=dog.device)
-    border = ((rr >= b) & (rr < h - b))[:, None] & (
-        (cc >= b) & (cc < w - b))[None, :]
-    return mask & border
+    inside = ((rr >= r_lo) & (rr < r_hi))[:, None] & (
+        (cc >= c_lo) & (cc < c_hi))[None, :]
+    return mask & inside
 
 
-def _plain(dog: torch.Tensor, cfg: SIFTConfig) -> torch.Tensor:
+def _plain(dog: torch.Tensor, cfg: SIFTConfig, box=None) -> torch.Tensor:
     val = dog[..., 1:1 + cfg.n_octave_layers, :, :]
-    return torch.where(extrema_mask(dog, cfg), val.abs(),
+    return torch.where(extrema_mask(dog, cfg, box), val.abs(),
                        torch.full_like(val, -1.0))
 
 
-def _launch(dog: torch.Tensor, cfg: SIFTConfig, compact: bool = False
-            ) -> tuple:
+def _launch(dog: torch.Tensor, cfg: SIFTConfig, compact: bool = False,
+            box=None) -> tuple:
     """The CUDA scan on (B, D, H, W): dense -> ((B, nL, H, W) scores,);
-    compact -> (keys (B, nL*H*W) int64, count (B,) int32)."""
+    compact -> (keys (B, nL*H*W) int64, count (B,) int32) of the
+    candidates inside `box` (check_box)."""
     # the kernel's border test keeps every neighbour load inside the
     # frame only while the border is at least one pixel
     if cfg.img_border < 1:
@@ -115,14 +137,16 @@ def _launch(dog: torch.Tensor, cfg: SIFTConfig, compact: bool = False
         out = (torch.empty((b, nl * h * w), dtype=torch.int64,
                            device=dog.device),
                torch.empty((b,), dtype=torch.int32, device=dog.device))
+        region = check_box(box, cfg, (h, w))
     else:
         name = "sift_extrema_scores"
         out = (torch.empty((b, nl, h, w), dtype=torch.float32,
                            device=dog.device),)
+        region = (cfg.img_border,)
     with torch.cuda.device(dog.device):
         err = getattr(_build.library(), name)(
             dog.data_ptr(), *(o.data_ptr() for o in out), b, d, nl, h, w,
-            float(cfg.nms_threshold), cfg.img_border,
+            float(cfg.nms_threshold), *region,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
     return out
@@ -184,12 +208,13 @@ def pack_keys(score: torch.Tensor) -> torch.Tensor:
 
 
 def extrema_compact_plain(dog: torch.Tensor,
-                          cfg: SIFTConfig = DEFAULT_CONFIG):
+                          cfg: SIFTConfig = DEFAULT_CONFIG, box=None):
     """Plain PyTorch compact scan: (B, D, H, W) -> (keys (B, nL*H*W)
-    int64, count (B,) int32); row b holds frame b's candidate keys in
+    int64, count (B,) int32); row b holds the keys of frame b's
+    candidates inside `box` (check_box; default the border box) in
     ascending flat index, then zeros."""
     _check_args(dog, cfg, 4)
-    score = _plain(dog, cfg).reshape(dog.shape[0], -1)
+    score = _plain(dog, cfg, box).reshape(dog.shape[0], -1)
     cand = score > 0
     count = cand.sum(dim=1, dtype=torch.int32)
     # a stable sort on "no candidate" puts each row's candidates first
@@ -200,17 +225,20 @@ def extrema_compact_plain(dog: torch.Tensor,
     return keys, count
 
 
-def extrema_compact(dog: torch.Tensor, cfg: SIFTConfig = DEFAULT_CONFIG):
+def extrema_compact(dog: torch.Tensor, cfg: SIFTConfig = DEFAULT_CONFIG,
+                    box=None):
     """K2 compact scan: (B, D, H, W) DoG stacks -> (keys (B, nL*H*W)
     int64, count (B,) int32), one launch for all frames; frame b's
-    candidate keys are keys[b, :count[b]], in any order on the card (the
-    rest is not written). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    candidate keys (inside `box`, default the border box) are
+    keys[b, :count[b]], in any order on the card (the rest is not
+    written). CPU tensors take the plain version; CUDA tensors launch
+    the kernel."""
     _check_args(dog, cfg, 4)
     check_field(cfg.n_octave_layers, dog.shape[-2:])
+    check_box(box, cfg, dog.shape[-2:])
     if _check_device(dog, "extrema_compact"):
-        return extrema_compact_plain(dog, cfg)
-    keys, count = _launch(dog, cfg, compact=True)
+        return extrema_compact_plain(dog, cfg, box)
+    keys, count = _launch(dog, cfg, compact=True, box=box)
     extrema_compact.launches += 1
     return keys, count
 

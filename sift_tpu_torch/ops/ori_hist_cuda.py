@@ -8,6 +8,9 @@ the one-hot contraction of sift_tpu/ops/orientation.py (_hist_bins,
 for a CPU tensor. Both return `hist` of calcOrientationHist
 (src/sift.cpp:389-458) before smoothing, with the per-sample arithmetic
 of the plain version; they differ only in the order of the sums.
+A sample counts where its row lies strictly inside (row_lo, row_hi - 1),
+(0, h) by default: a row band of a larger image passes the local rows
+of the image's own edges (`row_window`).
 """
 
 from __future__ import annotations
@@ -37,6 +40,17 @@ def _check_args(padded, layer, r, c, radius, expf_scale,
                          "shape")
 
 
+def row_window(row_bounds, h: int):
+    """(row_lo, row_hi) as Python ints: the rows of the true image's
+    first row and one past its last, in the stack's local rows; (0, h)
+    for None. They may lie outside the stack: they are compared, never
+    clamped."""
+    if row_bounds is None:
+        return 0, h
+    lo, hi = (int(v) for v in row_bounds)
+    return lo, hi
+
+
 def hist_onehot(contrib: torch.Tensor, bins: torch.Tensor,
                 n: int) -> torch.Tensor:
     """(N, P) contributions into (N, P) bin indices -> (N, n) weighted
@@ -49,19 +63,21 @@ def hist_onehot(contrib: torch.Tensor, bins: torch.Tensor,
 def orientation_hist_plain(padded: torch.Tensor, layer: torch.Tensor,
                            r: torch.Tensor, c: torch.Tensor,
                            radius: torch.Tensor, expf_scale: torch.Tensor,
-                           cfg: SIFTConfig) -> torch.Tensor:
+                           cfg: SIFTConfig, row_bounds=None) -> torch.Tensor:
     """Plain PyTorch K3-ori: one max-radius patch per keypoint, masked to
     its radius and the image interior, then a one-hot contraction.
 
     padded: (L, Hp, Wp), the octave's layers padded by
     ori_patch_radius + 1; layer: (N,) index into it; r, c: (N,) octave
     pixel; radius (int32), expf_scale: (N,) from
-    orientation.orientation_params. Returns (N, ori_hist_bins).
+    orientation.orientation_params; row_bounds: optional (lo, hi) rows
+    of the true image (`row_window`). Returns (N, ori_hist_bins).
     """
     _check_args(padded, layer, r, c, radius, expf_scale, cfg)
     n = cfg.ori_hist_bins
     rp = cfg.ori_patch_radius
     h, w = (s - 2 * (rp + 1) for s in padded.shape[1:])
+    row_lo, row_hi = row_window(row_bounds, h)
     # pixel (r, c) lands at patch[rp+1, rp+1]
     patches = gather_patches_plain(padded, layer, r, c, 2 * rp + 3)
 
@@ -77,7 +93,7 @@ def orientation_hist_plain(padded: torch.Tensor, layer: torch.Tensor,
     yy = r[:, None, None] + ii
     xx = c[:, None, None] + jj
     m = ((ii.abs() <= rad) & (jj.abs() <= rad)
-         & (yy > 0) & (yy < h - 1) & (xx > 0) & (xx < w - 1))
+         & (yy > row_lo) & (yy < row_hi - 1) & (xx > 0) & (xx < w - 1))
     wgt = torch.exp(r2_grid * expf_scale[:, None, None])
     mag = torch.sqrt(dx * dx + dy * dy)
     ori = fast_atan2_deg(dy, dx)
@@ -92,15 +108,15 @@ def orientation_hist_plain(padded: torch.Tensor, layer: torch.Tensor,
 
 def orientation_hist(padded: torch.Tensor, layer: torch.Tensor,
                      r: torch.Tensor, c: torch.Tensor, radius: torch.Tensor,
-                     expf_scale: torch.Tensor,
-                     cfg: SIFTConfig) -> torch.Tensor:
+                     expf_scale: torch.Tensor, cfg: SIFTConfig,
+                     row_bounds=None) -> torch.Tensor:
     """K3-ori: (N, 36) raw orientation histograms (arguments as
     orientation_hist_plain). CPU tensors take the plain version; CUDA
     tensors launch the kernel, one block per keypoint."""
     _check_args(padded, layer, r, c, radius, expf_scale, cfg)
     if padded.device.type == "cpu":
         return orientation_hist_plain(padded, layer, r, c, radius,
-                                      expf_scale, cfg)
+                                      expf_scale, cfg, row_bounds)
     if padded.device.type != "cuda":
         raise ValueError(f"orientation_hist: unsupported device "
                          f"{padded.device}")
@@ -114,6 +130,8 @@ def orientation_hist(padded: torch.Tensor, layer: torch.Tensor,
     expf_scale = expf_scale.to(device=padded.device,
                                dtype=torch.float32).contiguous()
     nlay, hp, wp = padded.shape
+    row_lo, row_hi = row_window(row_bounds,
+                                hp - 2 * (cfg.ori_patch_radius + 1))
     n = layer.shape[0]
     out = torch.empty((n, _KERNEL_BINS), dtype=torch.float32,
                       device=padded.device)
@@ -121,7 +139,7 @@ def orientation_hist(padded: torch.Tensor, layer: torch.Tensor,
         err = _build.library().sift_ori_hist(
             padded.data_ptr(), layer.data_ptr(), r.data_ptr(), c.data_ptr(),
             radius.data_ptr(), expf_scale.data_ptr(), out.data_ptr(), n,
-            nlay, hp, wp, cfg.ori_patch_radius,
+            nlay, hp, wp, cfg.ori_patch_radius, row_lo, row_hi,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sift_ori_hist")
     orientation_hist.launches += 1

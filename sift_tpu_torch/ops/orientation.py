@@ -47,12 +47,16 @@ def orientation_params(scl_octv: torch.Tensor,
 def orientation_peaks(gauss: torch.Tensor,
                       layer: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
                       scl_octv: torch.Tensor, valid: torch.Tensor,
-                      cfg: SIFTConfig = DEFAULT_CONFIG
+                      cfg: SIFTConfig = DEFAULT_CONFIG, row_bounds=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Up to max_ori_peaks orientations per refined keypoint.
 
     gauss: (S, H, W) Gaussian stack of one octave.
     layer/r/c/scl_octv/valid: (N,) refined keypoints (octave space).
+    row_bounds: optional (lo, hi), the rows of gauss that are the true
+    image's first row and one past its last (a row band of a larger
+    image, parallel/spatial.py); samples outside are out-of-image
+    samples (src/sift.cpp:411). Default (0, H).
     Returns (angles (N, K) degrees, peak_valid (N, K)).
     """
     n = cfg.ori_hist_bins
@@ -62,7 +66,8 @@ def orientation_peaks(gauss: torch.Tensor,
     # refined keypoints sit on layers 1..nl (refine clamps, sift.cpp:332)
     padded = F.pad(gauss[1:1 + nl], (pad, pad, pad, pad))
     radius, expf_scale = orientation_params(scl_octv, cfg)
-    hist = orientation_hist(padded, layer - 1, r, c, radius, expf_scale, cfg)
+    hist = orientation_hist(padded, layer - 1, r, c, radius, expf_scale, cfg,
+                            row_bounds)
 
     # circular (1,4,6,4,1)/16 smoothing (src/sift.cpp:440-451)
     sm = (hist.roll(2, 1) + hist.roll(-2, 1)) * (1.0 / 16.0) \

@@ -90,9 +90,17 @@ def derivative_fields(dog: torch.Tensor, n_layers: int | None = None):
 def refine_candidates(dog: torch.Tensor,
                       layer: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
                       valid: torch.Tensor,
-                      cfg: SIFTConfig = DEFAULT_CONFIG) -> Refined:
-    """Refine a batch of candidates on one octave's (D, H, W) DoG stack."""
+                      cfg: SIFTConfig = DEFAULT_CONFIG,
+                      row_bounds=None) -> Refined:
+    """Refine a batch of candidates on one octave's (D, H, W) DoG stack.
+
+    row_bounds: optional (lo, hi) local rows of the true image; a row
+    band of a larger image (parallel/spatial.py) bounds the Newton moves
+    by the image's border, not the band's (src/sift.cpp:341-346).
+    Default (0, H).
+    """
     h, w = dog.shape[1], dog.shape[2]
+    row_lo, row_hi = (0, h) if row_bounds is None else row_bounds
     nl = cfg.n_octave_layers
     border = cfg.img_border
     fields = derivative_fields(dog, nl)
@@ -132,7 +140,7 @@ def refine_candidates(dog: torch.Tensor,
         nc = cc + torch.where(move, cv_round(nxc), zero)
         oob = ((nlay < 1) | (nlay > nl)
                | (nc < border) | (nc >= w - border)
-               | (nr < border) | (nr >= h - border))
+               | (nr < row_lo + border) | (nr >= row_hi - border))
         alive = alive & ~(active & (diverged | (move & oob)))
         converged = converged | (active & conv_now)
         step = move & ~oob

@@ -41,11 +41,14 @@ def detect_octave(gauss: torch.Tensor, dog: torch.Tensor, octave: int,
 def _octave_tail(gauss: torch.Tensor, dog: torch.Tensor,
                  layer0: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
                  valid0: torch.Tensor, octave: int, cfg: SIFTConfig,
-                 out_cap: int) -> Keypoints:
+                 out_cap: int, row_bounds=None) -> Keypoints:
     """Refine + orient + compact one frame's octave, given the candidate
     scan's (cap,) output; split out of detect_octave so the batched path
-    can run the scan for all frames at once (sift_tpu/sift.py:49-99)."""
-    rf = ref.refine_candidates(dog, layer0, r0, c0, valid0, cfg)
+    can run the scan for all frames at once (sift_tpu/sift.py:49-99).
+    row_bounds: local rows of the true image when the stack is a row
+    band of it (parallel/spatial.py)."""
+    rf = ref.refine_candidates(dog, layer0, r0, c0, valid0, cfg,
+                               row_bounds=row_bounds)
     cap = layer0.shape[0]
 
     # mid-compaction: refinement rejects most candidates, so orientation
@@ -60,7 +63,8 @@ def _octave_tail(gauss: torch.Tensor, dog: torch.Tensor,
     scl_octv = cfg.sigma * torch.exp2((lay_f + rf.xi) / nl)
     size = scl_octv * (1 << octave) * 2.0           # src/sift.cpp:384
     angles, ok = ori.orientation_peaks(gauss, rf.layer, rf.r, rf.c,
-                                       scl_octv, rf.valid, cfg)
+                                       scl_octv, rf.valid, cfg,
+                                       row_bounds=row_bounds)
 
     k = cfg.max_ori_peaks
     scale = float(1 << octave)

@@ -1,0 +1,140 @@
+"""Elastic recovery (sift_tpu_torch.parallel.elastic): an incarnation of
+2 gloo rank processes running checkpointed, observation-sharded BA is
+killed mid-run -- by an injected fault after its first checkpoint, and
+by a SIGKILL from outside -- and the supervisor resumes from the last
+checkpoint with 1 rank. Both failures cross a real process boundary.
+
+The problem is sift_tpu's tests/test_elastic.py one (8 cameras, 256
+points, 4096 observations), written with the port's npz checkpoint. The
+reference is sift_tpu's bundle_adjust in the same 4 chunks of 2 LM
+iterations (each chunk restarts the damping, as each worker chunk
+does).
+"""
+
+import threading
+import time
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from sift_tpu.sfm import ba as jba
+
+from sift_tpu_torch.parallel.dryrun import to_problem
+from sift_tpu_torch.parallel.elastic import supervise_ba
+from sift_tpu_torch.sfm import checkpoint as ck
+from sift_tpu_torch.sfm.ba import reproj_rmse
+
+TOTAL, CHUNK, CG_ITERS = 8, 2, 10
+WORKER_TIMEOUT_S = 240
+
+
+def _problem_arrays(n_cams=8, n_pts=256, n_obs=4096, noise=0.02) -> dict:
+    rng = np.random.default_rng(0)
+    pts = np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-2, 2, n_pts),
+                    rng.uniform(5, 11, n_pts)], 1).astype(np.float32)
+    cams = np.zeros((n_cams, 6), np.float32)
+    cams[:, 3] = np.linspace(-0.8, 0.8, n_cams)
+    ci = rng.integers(0, n_cams, n_obs).astype(np.int32)
+    pi = rng.integers(0, n_pts, n_obs).astype(np.int32)
+    xc = pts[pi] + cams[ci][:, 3:]
+    uv = (xc[:, :2] / xc[:, 2:3]
+          + rng.normal(0, 5e-4, (n_obs, 2))).astype(np.float32)
+    fixed = np.zeros(n_cams, bool)
+    fixed[0] = True
+    cams0 = cams + rng.normal(0, noise, cams.shape).astype(np.float32) \
+        * ~fixed[:, None]
+    return dict(cameras=cams0, points=pts, cam_idx=ci, pt_idx=pi, uv=uv,
+                mask=np.ones(n_obs, bool), fixed_cams=fixed)
+
+
+@pytest.fixture(scope="module")
+def problem(tmp_path_factory):
+    arrays = _problem_arrays()
+    prob = to_problem(arrays, "cpu")
+    path = ck.save_ba(str(tmp_path_factory.mktemp("prob") / "prob"), prob, 0)
+    return prob, path, arrays
+
+
+@pytest.fixture(scope="module")
+def jax_reference(problem):
+    """sift_tpu's bundle_adjust in TOTAL / CHUNK chunks of CHUNK
+    iterations: its RMSE."""
+    _, _, a = problem
+    prob = jba.BAProblem(*(jnp.asarray(a[f]) for f in jba.BAProblem._fields))
+    for _ in range(TOTAL // CHUNK):
+        prob = jba.bundle_adjust(prob, iters=CHUNK, cg_iters=CG_ITERS)
+    return float(jba.reproj_rmse(prob))
+
+
+def _check_final(final, restarts, problem, jax_reference):
+    # the run ends at step TOTAL; the RMSE halves at least (sift_tpu's
+    # test) and lands within 1e-2 relative of sift_tpu's chunked BA (the
+    # runs differ in float32 rounding past CG convergence, ROADMAP Queue
+    # 3, and in the sharded sums of the first chunk)
+    prob0, _, _ = problem
+    out, step = ck.load_ba(final)
+    assert step == TOTAL
+    rmse = float(reproj_rmse(out))
+    assert rmse < 0.5 * float(reproj_rmse(prob0))
+    assert abs(rmse - jax_reference) <= 1e-2 * jax_reference, \
+        (rmse, jax_reference)
+
+
+def test_injected_crash_shrinks_and_recovers(problem, jax_reference,
+                                             tmp_path):
+    # the first incarnation (2 ranks) exits after its step-2 checkpoint;
+    # the second (1 rank) resumes there and finishes
+    _, path, _ = problem
+    spawned = []
+    final, restarts = supervise_ba(
+        path, str(tmp_path / "ck"), total_iters=TOTAL, chunk_iters=CHUNK,
+        cg_iters=CG_ITERS, n_devices=2, backend="gloo", device="cpu",
+        inject_crash_step=2, worker_timeout=WORKER_TIMEOUT_S,
+        on_spawn=spawned.append)
+    assert restarts == 1
+    assert len(spawned) == 3            # 2 ranks, then 1
+    assert [p.returncode for p in spawned] == [17, 17, 0]
+    _check_final(final, restarts, problem, jax_reference)
+
+
+def test_sigkill_shrinks_and_recovers(problem, jax_reference, tmp_path):
+    # a SIGKILL of rank 0 after the first checkpoint ends the 2-rank
+    # incarnation (the supervisor kills rank 1, stuck in a collective);
+    # 1 rank resumes from the checkpoint
+    _, path, _ = problem
+    ckdir = str(tmp_path / "ck2")
+    spawned = []
+
+    def killer(p):
+        spawned.append(p)
+        if len(spawned) != 1:
+            return                      # only rank 0 of the first run
+
+        def watch():
+            for _ in range(2000):
+                if ck.latest(ckdir) is not None:
+                    time.sleep(0.2)
+                    p.kill()
+                    return
+                time.sleep(0.05)
+
+        threading.Thread(target=watch, daemon=True).start()
+
+    final, restarts = supervise_ba(
+        path, ckdir, total_iters=TOTAL, chunk_iters=CHUNK,
+        cg_iters=CG_ITERS, n_devices=2, backend="gloo", device="cpu",
+        worker_timeout=WORKER_TIMEOUT_S, on_spawn=killer)
+    assert restarts >= 1
+    assert spawned[0].returncode == -9
+    _check_final(final, restarts, problem, jax_reference)
+
+
+def test_worker_failure_is_reported(problem, tmp_path):
+    # past max_restarts the supervisor raises with the ranks' output
+    _, path, _ = problem
+    with pytest.raises(RuntimeError, match="failed after 0 restarts"):
+        supervise_ba(path, str(tmp_path / "ck3"), total_iters=TOTAL,
+                     chunk_iters=CHUNK, n_devices=1, max_restarts=0,
+                     backend="nccl", device="cpu",
+                     worker_timeout=WORKER_TIMEOUT_S)

@@ -1,6 +1,7 @@
 """The port stands alone: it imports no JAX, and no kernel of its path is
 a library stand-in or sits behind a fallback."""
 
+import ast
 import pathlib
 import re
 import subprocess
@@ -23,7 +24,7 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules\n"
         "             if k == 'jax' or k.startswith(('jax.', 'sift_tpu.'))\n"
         "             or k == 'sift_tpu')\n"
-        "assert len(mods) >= 45, mods\n"
+        "assert len(mods) >= 57, mods\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
                           capture_output=True, text=True, timeout=300)
@@ -114,3 +115,104 @@ def test_match_wrapper_tiles_are_the_kernels():
     consts = dict(re.findall(r"constexpr int (kQB|kTT) = (\d+);", src))
     assert int(consts["kQB"]) == match_cuda._QUERY_TILE
     assert int(consts["kTT"]) == match_cuda._TRAIN_TILE
+
+
+PARALLEL = sorted((PKG / "parallel").glob("*.py"))
+BACKEND_LITERALS = {"gloo", "nccl"}
+
+
+def _front_end_functions() -> set:
+    """Names of the functions that reach a kernel: everything defined in
+    ops/, sift.py and pipeline.py, and in parallel/ but for mesh.py (the
+    process group and collectives)."""
+    names = set()
+    srcs = [*(PKG / "ops").glob("*.py"), PKG / "sift.py", PKG / "pipeline.py",
+            *(p for p in PARALLEL if p.name != "mesh.py")]
+    for src in srcs:
+        names |= {n.name for n in ast.walk(ast.parse(src.read_text()))
+                  if isinstance(n, ast.FunctionDef)}
+    return names
+
+
+def _called(nodes) -> set:
+    out = set()
+    for node in nodes:
+        for n in ast.walk(node):
+            if isinstance(n, ast.Call):
+                f = n.func
+                out.add(f.attr if isinstance(f, ast.Attribute) else
+                        getattr(f, "id", None))
+    return out
+
+
+def _literals(node) -> set:
+    return {n.value for n in ast.walk(node)
+            if isinstance(n, ast.Constant) and n.value in BACKEND_LITERALS}
+
+
+def test_parallel_has_no_fallback_around_kernels():
+    # a try with an except in parallel/ never wraps a call that reaches a
+    # kernel: a rank's kernel fails loudly, it is not retried another way
+    front = _front_end_functions()
+    assert {"detect_and_compute_batch", "top_candidates", "knn2_l1",
+            "gaussian_blur_multi", "detect_and_compute_tiled"} <= front
+    for src in PARALLEL:
+        for node in ast.walk(ast.parse(src.read_text())):
+            if isinstance(node, ast.Try) and node.handlers:
+                hit = _called(node.body) & front
+                assert not hit, (src.name, node.lineno, hit)
+
+
+def test_parallel_backend_is_the_callers():
+    # the process group is created in one place, with the backend its
+    # caller passed; no code picks a backend from what the machine has,
+    # and no handler falls back to another backend
+    inits = []
+    for src in PARALLEL:
+        tree = ast.parse(src.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.FunctionDef):
+                for call in ast.walk(node):
+                    if (isinstance(call, ast.Call)
+                            and isinstance(call.func, ast.Attribute)
+                            and call.func.attr == "init_process_group"):
+                        inits.append((src.name, node.name, call))
+            if isinstance(node, (ast.If, ast.IfExp, ast.BoolOp, ast.Compare)):
+                probes = {n.attr for n in ast.walk(node)
+                          if isinstance(n, ast.Attribute)}
+                assert not (_literals(node) and probes & {
+                    "is_available", "device_count"}), (src.name, node.lineno)
+            if isinstance(node, ast.Try):
+                for h in node.handlers:
+                    assert not _literals(h) and not (
+                        _called(h.body) & {"init_process",
+                                           "init_process_group"}), \
+                        (src.name, h.lineno)
+    assert [(f, fn) for f, fn, _ in inits] == [("mesh.py", "init_process")]
+    call = inits[0][2]
+    assert isinstance(call.args[0], ast.Name) and call.args[0].id == "backend"
+
+
+def test_parallel_has_no_default_backend_or_device():
+    # a default would choose for a caller who names neither: no function
+    # of parallel/ gives `backend` a default, or `device` a device name
+    # (make_mesh's device=None follows the world's backend)
+    checked = set()
+    for src in PARALLEL:
+        for node in ast.walk(ast.parse(src.read_text())):
+            if not isinstance(node, ast.FunctionDef):
+                continue
+            a = node.args
+            pos = a.posonlyargs + a.args
+            named = list(zip(pos[len(pos) - len(a.defaults):], a.defaults))
+            named += [(x, d) for x, d in zip(a.kwonlyargs, a.kw_defaults)
+                      if d is not None]
+            for arg, default in named:
+                assert arg.arg != "backend", (src.name, node.name)
+                assert not (arg.arg == "device"
+                            and isinstance(default, ast.Constant)
+                            and isinstance(default.value, str)), \
+                    (src.name, node.name)
+            checked |= {node.name} & {"run_spmd", "init_process",
+                                      "supervise_ba"}
+    assert checked == {"run_spmd", "init_process", "supervise_ba"}
