@@ -31,7 +31,13 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      windows start outside the image, within rtol 1e-5 and
      atol 1e-5 * max|hist| per row of their plain versions on valid rows
      (the sums only run in another order), and bit-identical across two
-     launches; K2's compact scan and the select kernel, as
+     launches; K3-ori and K3-desc also over the batch step's 8 frames in
+     one launch each (8 x 2 stacked planes of 1080 + pad x 1920 + pad,
+     each frame's real keypoints plus slots starting outside the image
+     and invalid slots at stack layer -1, which in frames >= 1 must
+     clamp inside their own frame), against their plain versions at the
+     same bounds and, frame by frame, equal to the single-frame launch;
+     K2's compact scan and the select kernel, as
      top_candidates and top_candidates_batch launch them, under
      torch.equal against top_candidates_plain (the stable sort of the
      dense scores) on all four outputs at every octave of detect_object
@@ -54,11 +60,10 @@ sift_tpu_torch/csrc, then runs, one line per phase:
   5. the throughput path at 1080p, B = 8 (frame i is the scene rolled by
      17 i columns): bench.py's batch step, detect_and_compute_batch plus
      7 consecutive-frame matches, must launch K1-batch and K4, the
-     compact scan and the select kernel once per octave, K3-ori and
-     K3-desc once per usable octave of each frame, and not the
-     single-frame K1, the dense K2 or K2-batch; every row of the batch
-     must equal detect_and_compute on its frame; then its frames/s and
-     peak device memory;
+     compact scan, the select kernel, K3-ori and K3-desc once per usable
+     octave for all 8 frames, and not the single-frame K1, the dense K2
+     or K2-batch; every row of the batch must equal detect_and_compute
+     on its frame; then its frames/s and peak device memory;
   6. the mapping path (sfm.mapping.run_mapping: detect + describe per
      frame, sequential K4 matches, incremental SfM, loop closures, pose
      graph, closure-aware BA, export), rendered by the port's cv2-free
@@ -124,6 +129,7 @@ BATCH = 8
 ROLL_STEP = 17       # columns between consecutive frames (bench.py:493)
 TIMING_RUNS = 20
 EXTRA_SLOTS = 64     # phase-2 K3-ori/K3-desc slots starting outside the image
+TRAP_SLOTS = 16      # phase-2 batched K3: invalid slots a frame at layer -1
 KERNELS = ("K1", "K1-batch", "K2", "K2-batch", "K2-compact", "K2-select",
            "K3", "K3-ori", "K3-desc", "K4")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -393,15 +399,21 @@ def blur_library(x, kmat):
 
 
 def window_bound(shape, p: int, rad: int, layer, r, c, radius, keep,
-                 n_in: int, n_out: int, ops_per_sample: int) -> tuple:
+                 n_in: int, n_out: int, ops_per_sample: int,
+                 frames: int = 1) -> tuple:
     """K3-ori / K3-desc: the stack pixels the kept keypoints' windows
     reach (each read once), n_in bytes of keypoint arguments, n_out bytes
-    of histograms; ops_per_sample for every sample of each box."""
+    of histograms; ops_per_sample for every sample of each box. shape is
+    the (frames * L, Hp, Wp) stack; layer, r, c, radius and keep are the
+    frames' keypoints back to back, each layer clamped inside its frame
+    as the kernels clamp it."""
     nlay, hp, wp = shape
     touched = np.zeros(shape, bool)
     boxes = np.minimum(radius, rad)
     keep = keep & (boxes >= 0)
-    lay = np.clip(layer, 0, nlay - 1)
+    lpf, kpf = nlay // frames, len(layer) // frames
+    lay = (np.clip(layer, 0, lpf - 1)
+           + np.arange(len(layer)) // kpf * lpf)
     rs = np.clip(r, 0, hp - p) + rad - boxes
     cs = np.clip(c, 0, wp - p) + rad - boxes
     for k in np.nonzero(keep)[0]:
@@ -573,6 +585,7 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
     import torch
     from sift_tpu_torch import sift
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops import extrema as ext
     from sift_tpu_torch.ops import pyramid
     from sift_tpu_torch.ops.conv_cuda import (blur_vh, blur_vh_batch,
                                               blur_vh_batch_plain,
@@ -655,6 +668,7 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
     # K2-batch on the (8, 4, 1080, 1920) DoG of the eight frames
     dogsb = pyramid.build_dog_pyramid_batch(octsb)
     dogb = dogsb[0].contiguous()
+    octb0 = octsb[0]
     del octsb
     got = extrema_scores_batch(dogb, cfg)
     want = extrema_scores_batch_plain(dogb, cfg)
@@ -680,6 +694,7 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
     del dogb
     phase_select(dogs, pyramid.build_dog_pyramid(
         pyramid.build_gaussian_pyramid(img_obj, cfg)), dogsb, record)
+    dogb0 = dogsb[0]
     del dogsb
 
     # K3: p=39 with N=1024 (orientation), p=85 with N=64 and N=1024; a
@@ -712,6 +727,11 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
     kp = sift.detect_octave(octs[0], dogs[0], 0, cfg.detect_caps[0], cfg,
                             cfg.out_caps[0])
     phase_fused_hist(octs[0], kp, rng, record)
+    # and over the B = 8 frames of the batch step, one launch each
+    kpb = sift._octave_tail(octb0, dogb0, *ext.top_candidates_batch(
+        dogb0, cfg.detect_caps[0], cfg), 0, cfg, cfg.out_caps[0])
+    phase_fused_hist_batch(octb0, kpb, rng, report)
+    del octb0, dogb0, kpb
     phase_band_kernels(img4k_np)
 
     # K4 at 1536 x 1536 with sentinel rows and tied duplicates, within a
@@ -1058,6 +1078,134 @@ def phase_fused_hist(gauss, kp, rng, record) -> None:
            "sift_tpu/ops/ori_gather_pallas.py:109", err, ms, pms, bnd)
 
 
+
+def phase_fused_hist_batch(gauss, kp, rng, report) -> None:
+    """Phase 2, K3-ori and K3-desc over the batch step's B frames at
+    octave 0, one launch each on the (B * nl, Hp, Wp) stack, as
+    detect_and_compute_batch launches them: per frame its real keypoints
+    (out_caps[0] slots), EXTRA_SLOTS valid slots starting outside the
+    image at stack layers -1..nl, and TRAP_SLOTS invalid slots at stack
+    layer -1, which in frames b >= 1 must read frame b's first plane and
+    not frame b - 1's last. Each against its plain version on every row
+    K3-ori bins (all) and K3-desc bins (valid) within rtol 1e-5 and
+    atol 1e-5 * max|hist| per row; each frame also equal to the
+    single-frame launch on that frame alone, bit for bit; timed on the
+    B x out_caps[0] real slots. Adds a "batch" entry to each row."""
+    import torch
+    import torch.nn.functional as F
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops.descriptor import descriptor_params
+    from sift_tpu_torch.ops.descr_hist_cuda import (descriptor_hist,
+                                                    descriptor_hist_plain)
+    from sift_tpu_torch.ops.orientation import orientation_params
+    from sift_tpu_torch.ops.ori_hist_cuda import (orientation_hist,
+                                                  orientation_hist_plain)
+
+    dev = gauss.device
+    nb = gauss.shape[0]
+    nl = cfg.n_octave_layers
+    h, w = gauss.shape[-2:]
+    n_real = kp.capacity
+    e, t = EXTRA_SLOTS, TRAP_SLOTS
+    check(all(int(kp.valid[b].sum()) > 100 for b in range(nb)),
+          f"too few valid octave-0 keypoints per frame: "
+          f"{kp.valid.sum(dim=1).tolist()}")
+
+    def per_frame(draw, dtype):
+        return torch.as_tensor(np.stack([draw() for _ in range(nb)]),
+                               dtype=dtype, device=dev)
+
+    def slots(a, extra, trap):
+        return torch.cat([a, extra.to(a.dtype), trap.to(a.dtype)], dim=1)
+
+    real = [torch.nonzero(kp.valid[b]).flatten().cpu().numpy()
+            for b in range(nb)]
+    pick = torch.as_tensor(np.stack([rng.choice(v, e) for v in real]),
+                           device=dev)
+    pick_t = torch.as_tensor(np.stack([rng.choice(v, t) for v in real]),
+                             device=dev)
+    above = rng.random((nb, e)) < 0.5
+    xr = torch.as_tensor(np.where(above, rng.integers(-60, 0, (nb, e)),
+                                  rng.integers(h, h + 60, (nb, e))),
+                         device=dev)
+    zeros_t = torch.zeros((nb, t), dtype=torch.int32, device=dev)
+    layer = slots(kp.layer, per_frame(lambda: rng.integers(0, nl + 2, e),
+                                      torch.int32), zeros_t)
+    r = slots(kp.r, xr, kp.r.gather(1, pick_t))
+    c = slots(kp.c, per_frame(lambda: rng.integers(-60, w + 60, e),
+                              torch.int32), kp.c.gather(1, pick_t))
+    size = slots(kp.size, kp.size.gather(1, pick), kp.size.gather(1, pick_t))
+    angle = slots(kp.angle, kp.angle.gather(1, pick),
+                  kp.angle.gather(1, pick_t))
+    valid = slots(kp.valid, torch.ones((nb, e), dtype=torch.bool,
+                                       device=dev),
+                  torch.zeros((nb, t), dtype=torch.bool, device=dev))
+
+    def compare(name, got, want, rows):
+        g = got[rows].reshape(int(rows.sum()), -1)
+        x = want[rows].reshape(g.shape)
+        atol = 1e-5 * x.abs().amax(dim=1, keepdim=True)
+        check(bool(((g - x).abs() <= 1e-5 * x.abs() + atol).all()),
+              f"{name} at B={nb} disagrees with its plain version")
+        return float((g - x).abs().max())
+
+    def run(name, fn, plain, args, rows, n_in, n_out, ops, rad, radius,
+            keep):
+        got, again = fn(*args), fn(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"{name} at B={nb}: two launches "
+                                       f"differ")
+        for b in range(nb):
+            one = fn(*(a[b] if torch.is_tensor(a) else a for a in args))
+            check(torch.equal(got[b], one),
+                  f"{name} at B={nb}: frame {b} differs from the "
+                  f"single-frame launch on it")
+        err = compare(name, got, want, rows)
+        real = tuple(a[:, :n_real] if torch.is_tensor(a) and a.dim() == 2
+                     else a for a in args)
+        ms = median_ms(lambda: fn(*real))
+        pms = median_ms(lambda: plain(*real), runs=3)
+        lay, rr, cc, rd_, kp_ = (a[:, :n_real].reshape(-1).cpu().numpy()
+                                 for a in (args[1], args[2], args[3],
+                                           radius, keep))
+        stack = args[0]
+        bnd = window_bound((nb * stack.shape[1], *stack.shape[2:]),
+                           2 * rad + 3, rad, lay, rr, cc, rd_, kp_,
+                           n_in * nb * n_real, n_out * nb * n_real, ops,
+                           frames=nb)
+        print(f"phase 2 {name} over B={nb} frames {tuple(stack.shape)} "
+              f"N={nb}x({n_real}+{e}+{t}) (valid {int(valid.sum())}, "
+              f"{t} invalid slots a frame at stack layer -1): "
+              f"max_abs_err={err!r} (two launches bit-identical, each "
+              f"frame equal to its single-frame launch) kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms at N={nb}x{n_real}, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})")
+        report[name]["batch"] = {
+            "frames": nb, "keypoints": nb * n_real, "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": float(bnd[0]),
+            "bound_by": bnd[1]}
+
+    rp = cfg.ori_patch_radius
+    po = F.pad(gauss[:, 1:1 + nl], (rp + 1,) * 4)
+    radius, expf_scale = orientation_params(size * 0.5, cfg)
+    run("K3-ori", orientation_hist, orientation_hist_plain,
+        (po, layer - 1, r, c, radius, expf_scale, cfg),
+        torch.ones_like(valid), 20, 4 * 36, ORI_OPS_PER_SAMPLE, rp, radius,
+        torch.ones_like(valid))
+    rd = cfg.descr_patch_radius
+    pd = F.pad(gauss[:, 1:1 + nl], (rd + 1,) * 4)
+    prm = descriptor_params(size, angle, torch.ones(1, device=dev), (h, w),
+                            cfg)
+    dargs = (pd, layer - 1, r, c, prm.cos_t, prm.sin_t, prm.radius, prm.ori,
+             valid, cfg)
+    got = descriptor_hist(*dargs)
+    check(bool((got[~valid] == 0).all()),
+          f"K3-desc at B={nb}: a slot with valid false is not zero")
+    run("K3-desc", descriptor_hist, descriptor_hist_plain, dargs, valid, 29,
+        4 * 360, DESC_OPS_PER_SAMPLE, rd, prm.radius, valid)
+
+
 def phase_cpu_vs_card():
     """Phase 3: the whole path, plain versions on the CPU vs kernels."""
     import torch
@@ -1211,10 +1359,10 @@ def phase_batch(scene_np, report, pair_fps: float) -> None:
           f"batch step: the compact scan / select launched "
           f"{launches['K2-compact']}/{launches['K2-select']} times, not "
           f"once per octave ({octaves})")
-    per_step = BATCH * octaves
-    check(launches["K3-ori"] == per_step and launches["K3-desc"] == per_step,
+    check(launches["K3-ori"] == octaves and launches["K3-desc"] == octaves,
           f"batch step: K3-ori/K3-desc launched {launches['K3-ori']}/"
-          f"{launches['K3-desc']} times, not {per_step}")
+          f"{launches['K3-desc']} times, not once per octave for all "
+          f"{BATCH} frames ({octaves})")
     n = sum(cfg.out_caps)
     check(tuple(kp.x.shape) == (BATCH, n)
           and tuple(d.shape) == (BATCH, n, cfg.descr_size),

@@ -47,14 +47,14 @@ _SIGNATURES = {
     "sift_extrema_select": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P),
     "sift_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # src, layer, row, col, radius, expf_scale, out, N, L, Hp, Wp, rp,
-    # row_lo, row_hi (the image's rows), stream
+    # src, layer, row, col, radius, expf_scale, out, N, B (frames), L,
+    # Hp, Wp, rp, row_lo, row_hi (the image's rows), stream
     "sift_ori_hist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _P),
+                      _I, _P),
     # src, layer, row, col, cos_t, sin_t, radius, ori, valid, out,
-    # N, L, Hp, Wp, rd, row_lo, row_hi, stream
+    # N, B (frames), L, Hp, Wp, rd, row_lo, row_hi, stream
     "sift_descr_hist": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _P),
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # query, train, N, M, D, P, span (P train splits of span rows),
     # part_d1, part_d2, part_idx ((P, N) scratch), idx, d1, d2, stream
     "sift_knn2_l1": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,

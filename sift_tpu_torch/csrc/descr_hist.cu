@@ -18,7 +18,9 @@
 // before the circular fold; the fold and the normalization chain stay
 // in PyTorch.
 //
-// Work: one block of 8 warps per keypoint; slots with valid false
+// Work: one block of 8 warps per keypoint, one launch for all keypoints
+// of an octave, of one frame or of all B frames of a batch (the frames'
+// planes stacked, load_window's per-frame clamp); slots with valid false
 // write zeros. The block loads only the rows and columns its radius
 // R = min(radius, rd) reaches, a (2R + 3)^2 sub-window of the
 // (2 rd + 3)^2 patch, with coalesced row loads; samples outside that
@@ -123,8 +125,8 @@ descr_hist_kernel(const float* __restrict__ src,
                   const int* __restrict__ radius,
                   const float* __restrict__ ori,
                   const unsigned char* __restrict__ valid,
-                  float* __restrict__ out, int L, int Hp, int Wp, int rd,
-                  int w, int row_lo, int row_hi) {
+                  float* __restrict__ out, int kpf, int lpf, int Hp, int Wp,
+                  int rd, int w, int row_lo, int row_hi) {
   extern __shared__ float smem[];
   const int p = 2 * rd + 3;
   float* win = smem;                      // (p, p)
@@ -139,8 +141,8 @@ descr_hist_kernel(const float* __restrict__ src,
   }
 
   for (int t = tid; t < kWarps * kBins; t += kThreads) whist[t] = 0.f;
-  load_window(win, src, layer[n], row[n], col[n], L, Hp, Wp, p, rd - R,
-              2 * R + 3, warp, kWarps, lane);
+  load_window(win, src, layer[n], row[n], col[n], n / kpf, lpf, Hp, Wp, p,
+              rd - R, 2 * R + 3, warp, kWarps, lane);
   __syncthreads();
 
   const int kr = row[n], kc = col[n];
@@ -200,23 +202,28 @@ descr_hist_kernel(const float* __restrict__ src,
 
 }  // namespace
 
-// src (L, Hp, Wp) padded by rd + 1 around an (h, w) image; layer (the
-// stack index), row, col, radius (N,) int32; cos_t, sin_t, ori (N,)
-// float32; valid (N,) bool -> out (N, 6, 6, 10). A sample counts where
-// its row lies strictly inside (row_lo, row_hi - 1), as in
+// src (L, Hp, Wp) padded by rd + 1 around an (h, w) image: B frames of
+// L / B planes each, back to back, as in sift_ori_hist; layer (the
+// index into its frame's planes), row, col, radius (N,) int32; cos_t,
+// sin_t, ori (N,) float32; valid (N,) bool -> out (N, 6, 6, 10).
+// Keypoints [b N / B, (b + 1) N / B) belong to frame b. A sample counts
+// where its row lies strictly inside (row_lo, row_hi - 1), as in
 // sift_ori_hist: (0, h) for a whole image.
 extern "C" int sift_descr_hist(const float* src, const int* layer,
                                const int* row, const int* col,
                                const float* cos_t, const float* sin_t,
                                const int* radius, const float* ori,
                                const unsigned char* valid, float* out, int N,
-                               int L, int Hp, int Wp, int rd, int row_lo,
-                               int row_hi, void* stream_ptr) {
+                               int B, int L, int Hp, int Wp, int rd,
+                               int row_lo, int row_hi, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (N == 0) return cudaSuccess;
   const int p = 2 * rd + 3;
   const int h = Hp - 2 * (rd + 1), w = Wp - 2 * (rd + 1);
-  if (rd < 0 || L < 1 || h < 1 || w < 1) return cudaErrorInvalidValue;
+  if (B < 1 || N % B != 0 || L % B != 0 || rd < 0 || L < B || h < 1 ||
+      w < 1) {
+    return cudaErrorInvalidValue;
+  }
   const size_t smem = sizeof(float) * ((size_t)p * p + kWarps * kBins);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -226,7 +233,7 @@ extern "C" int sift_descr_hist(const float* src, const int* layer,
   }
   descr_hist_kernel<<<N, kThreads, smem, stream>>>(src, layer, row, col, cos_t,
                                                    sin_t, radius, ori, valid,
-                                                   out, L, Hp, Wp, rd, w,
-                                                   row_lo, row_hi);
+                                                   out, N / B, L / B, Hp, Wp,
+                                                   rd, w, row_lo, row_hi);
   return cudaGetLastError();
 }

@@ -17,16 +17,21 @@ namespace sift_hist {
 constexpr unsigned kFullMask = 0xffffffffu;
 
 // Copies rows and columns [lo, lo + span) of the (p, p) window of the
-// padded stack src (L, Hp, Wp) into win (p, p, row stride p). The start
-// (layer, row, col) is clamped as lax.dynamic_slice clamps it
-// (ori_gather_pallas.py:133-135, csrc/gather.cu). Warp w copies rows
-// w, w + nwarps, ...; its lanes copy neighbouring columns, so each row
-// is read with coalesced loads.
+// padded stack src into win (p, p, row stride p). src holds the frames'
+// planes back to back, (frames * lpf, Hp, Wp) with lpf planes a frame;
+// the keypoint belongs to `frame`. The start (layer, row, col) is
+// clamped as lax.dynamic_slice clamps it inside one frame's
+// (lpf, Hp, Wp) stack (ori_gather_pallas.py:133-135, csrc/gather.cu),
+// then offset to that frame's planes, so a slot of frame b with layer
+// -1 reads frame b's first plane, never frame b - 1's last. With one
+// frame this is the clamp to the whole stack. Warp w copies rows w,
+// w + nwarps, ...; its lanes copy neighbouring columns, so each row is
+// read with coalesced loads.
 __device__ __forceinline__ void load_window(
     float* win, const float* __restrict__ src, int layer, int row, int col,
-    int L, int Hp, int Wp, int p, int lo, int span, int warp, int nwarps,
-    int lane) {
-  const int l = min(max(layer, 0), L - 1);
+    int frame, int lpf, int Hp, int Wp, int p, int lo, int span, int warp,
+    int nwarps, int lane) {
+  const int l = frame * lpf + min(max(layer, 0), lpf - 1);
   const int r0 = min(max(row, 0), Hp - p);
   const int c0 = min(max(col, 0), Wp - p);
   const float* base = src + ((size_t)l * Hp + r0 + lo) * Wp + c0 + lo;

@@ -13,8 +13,10 @@
 // ops/orientation.py before smoothing (calcOrientationHist,
 // src/sift.cpp:389-458).
 //
-// Work: one block of 4 warps per keypoint. It loads only the rows and
-// columns its own radius R = min(radius, rp) can reach, a
+// Work: one block of 4 warps per keypoint, one launch for all keypoints
+// of an octave, of one frame or of all B frames of a batch (the frames'
+// planes stacked, load_window's per-frame clamp). A block loads only the
+// rows and columns its own radius R = min(radius, rp) can reach, a
 // (2R + 3)^2 sub-window of the (2 rp + 3)^2 patch, with coalesced row
 // loads; samples outside that box are masked in the plain version, so
 // they are skipped. Several blocks share an SM (5.9 KB of shared memory
@@ -54,8 +56,8 @@ ori_hist_kernel(const float* __restrict__ src, const int* __restrict__ layer,
                 const int* __restrict__ row, const int* __restrict__ col,
                 const int* __restrict__ radius,
                 const float* __restrict__ expf_scale,
-                float* __restrict__ out, int L, int Hp, int Wp, int rp,
-                int w, int row_lo, int row_hi) {
+                float* __restrict__ out, int kpf, int lpf, int Hp, int Wp,
+                int rp, int w, int row_lo, int row_hi) {
   extern __shared__ float smem[];
   const int p = 2 * rp + 3;
   float* win = smem;                      // (p, p)
@@ -66,8 +68,8 @@ ori_hist_kernel(const float* __restrict__ src, const int* __restrict__ layer,
 
   for (int t = tid; t < kWarps * kBins; t += kThreads) whist[t] = 0.f;
   if (R >= 0) {
-    load_window(win, src, layer[n], row[n], col[n], L, Hp, Wp, p, rp - R,
-                2 * R + 3, warp, kWarps, lane);
+    load_window(win, src, layer[n], row[n], col[n], n / kpf, lpf, Hp, Wp, p,
+                rp - R, 2 * R + 3, warp, kWarps, lane);
   }
   __syncthreads();
 
@@ -116,22 +118,29 @@ ori_hist_kernel(const float* __restrict__ src, const int* __restrict__ layer,
 
 }  // namespace
 
-// src (L, Hp, Wp) padded by rp + 1 around an (h, w) image; layer (the
-// stack index), row, col, radius (N,) int32; expf_scale (N,) float32
-// -> out (N, 36). A sample counts where its row lies strictly inside
-// (row_lo, row_hi - 1): (0, h) for a whole image; a row band of a larger
-// image passes the local rows of that image's first row and of one past
-// its last, which may lie outside the band (compared, never clamped).
+// src (L, Hp, Wp) padded by rp + 1 around an (h, w) image: B frames of
+// L / B planes each, back to back; layer (the index into its frame's
+// planes), row, col, radius (N,) int32; expf_scale (N,) float32 -> out
+// (N, 36). Keypoints [b N / B, (b + 1) N / B) belong to frame b; B = 1
+// is one frame, whose layer clamps to the whole stack. A sample counts
+// where its row lies strictly inside (row_lo, row_hi - 1): (0, h) for a
+// whole image; a row band of a larger image passes the local rows of
+// that image's first row and of one past its last, which may lie
+// outside the band (compared, never clamped).
 extern "C" int sift_ori_hist(const float* src, const int* layer,
                              const int* row, const int* col,
                              const int* radius, const float* expf_scale,
-                             float* out, int N, int L, int Hp, int Wp, int rp,
-                             int row_lo, int row_hi, void* stream_ptr) {
+                             float* out, int N, int B, int L, int Hp, int Wp,
+                             int rp, int row_lo, int row_hi,
+                             void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (N == 0) return cudaSuccess;
   const int p = 2 * rp + 3;
   const int h = Hp - 2 * (rp + 1), w = Wp - 2 * (rp + 1);
-  if (rp < 0 || L < 1 || h < 1 || w < 1) return cudaErrorInvalidValue;
+  if (B < 1 || N % B != 0 || L % B != 0 || rp < 0 || L < B || h < 1 ||
+      w < 1) {
+    return cudaErrorInvalidValue;
+  }
   const size_t smem = sizeof(float) * ((size_t)p * p + kWarps * kBins);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -140,7 +149,8 @@ extern "C" int sift_ori_hist(const float* src, const int* layer,
     if (err != cudaSuccess) return err;
   }
   ori_hist_kernel<<<N, kThreads, smem, stream>>>(src, layer, row, col, radius,
-                                                 expf_scale, out, L, Hp, Wp,
-                                                 rp, w, row_lo, row_hi);
+                                                 expf_scale, out, N / B,
+                                                 L / B, Hp, Wp, rp, w, row_lo,
+                                                 row_hi);
   return cudaGetLastError();
 }

@@ -11,14 +11,18 @@ before the circular fold, zero for slots with valid false, with the
 per-sample arithmetic of the plain version; they differ only in the
 order of the sums. A sample counts where its row lies strictly inside
 (row_lo, row_hi - 1), (0, h) by default (ori_hist_cuda.row_window).
+Like K3-ori, one call takes one frame, (L, Hp, Wp) with (N,) keypoint
+arguments, or B frames, (B, L, Hp, Wp) with (B, N) arguments, in one
+launch with each layer clamped inside its own frame.
 
 The plain version writes the scatter as a contraction of soft one-hots
 in float32,
 
     hist[(row,col), ori] = sum_p RC[p, (row,col)] * OM[p, ori]
 
-over chunks of 64 keypoints, so the RC intermediate stays at
-(64, 6889, 36) floats (~63 MB).
+over chunks of 64 valid keypoints of one frame, so the RC intermediate
+stays at (64, 6889, 36) floats (~63 MB) and a row's sums never depend on
+other frames.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from sift_tpu_torch import _build
 from sift_tpu_torch.config import SIFTConfig
 from sift_tpu_torch.ops.mathutil import fast_atan2_deg
 from sift_tpu_torch.ops.ori_gather_cuda import gather_patches_plain
-from sift_tpu_torch.ops.ori_hist_cuda import row_window
+from sift_tpu_torch.ops.ori_hist_cuda import (check_frames, frame_stack,
+                                              row_window, stack_layer)
 
 _KERNEL_WIDTH = 4     # csrc/descr_hist.cu: kD
 _KERNEL_BINS = 8      # csrc/descr_hist.cu: kN
@@ -37,17 +42,8 @@ _KERNEL_BINS = 8      # csrc/descr_hist.cu: kN
 
 def _check_args(padded, layer, r, c, cos_t, sin_t, radius, ori, valid,
                 cfg: SIFTConfig) -> None:
-    rd = cfg.descr_patch_radius
-    if padded.dtype != torch.float32 or padded.dim() != 3:
-        raise ValueError(f"descriptor source must be (L, Hp, Wp) float32, "
-                         f"got {tuple(padded.shape)} {padded.dtype}")
-    if min(padded.shape[1:]) < 2 * rd + 3:
-        raise ValueError(f"source {tuple(padded.shape)} is not padded by "
-                         f"{rd + 1}")
-    args = (layer, r, c, cos_t, sin_t, radius, ori, valid)
-    if layer.dim() != 1 or any(a.shape != layer.shape for a in args):
-        raise ValueError("keypoint arguments must be (N,) tensors of one "
-                         "shape")
+    check_frames(padded, cfg.descr_patch_radius + 1, layer, r, c, cos_t,
+                 sin_t, radius, ori, valid)
 
 
 def _soft_onehot(i0: torch.Tensor, frac: torch.Tensor, width: int,
@@ -131,31 +127,41 @@ def descriptor_hist_plain(padded: torch.Tensor, layer: torch.Tensor,
                           radius: torch.Tensor, ori: torch.Tensor,
                           valid: torch.Tensor, cfg: SIFTConfig,
                           chunk: int = 64, row_bounds=None) -> torch.Tensor:
-    """Plain PyTorch K3-desc, `chunk` keypoints at a time.
+    """Plain PyTorch K3-desc, `chunk` keypoints of one frame at a time.
 
     padded: (L, Hp, Wp), the octave's layers padded by
-    descr_patch_radius + 1; layer: (N,) index into it; r, c: (N,)
-    octave pixel; cos_t, sin_t, radius (int32), ori: (N,) from
-    descriptor.descriptor_params; valid: (N,) bool; row_bounds:
-    optional (lo, hi) rows of the true image. Returns
-    (N, d+2, d+2, n+2), zero where valid is false.
+    descr_patch_radius + 1, or (B, L, Hp, Wp) for B frames; layer: (N,)
+    index into the frame's L planes, or (B, N); r, c: octave pixel;
+    cos_t, sin_t, radius (int32), ori: from
+    descriptor.descriptor_params; valid: bool; row_bounds: optional
+    (lo, hi) rows of the true image. Returns (N, d+2, d+2, n+2), or
+    (B, N, ...), zero where valid is false. Frame b's keypoints read the
+    flattened stack at ori_hist_cuda.stack_layer(layer, L, b), as the
+    kernel does.
     """
     _check_args(padded, layer, r, c, cos_t, sin_t, radius, ori, valid, cfg)
     rd = cfg.descr_patch_radius
     pn = 2 * rd + 3
-    hw = tuple(s - 2 * (rd + 1) for s in padded.shape[1:])
+    stack, nb, nlay = frame_stack(padded)
+    hw = tuple(s - 2 * (rd + 1) for s in stack.shape[1:])
     window = row_window(row_bounds, hw[0])
     d, n = cfg.descr_width, cfg.descr_hist_bins
-    hist = torch.zeros((layer.shape[0], d + 2, d + 2, n + 2),
+    hist = torch.zeros((*layer.shape, d + 2, d + 2, n + 2),
                        dtype=torch.float32, device=padded.device)
-    # each row's histogram depends on its own keypoint only, so the
-    # invalid rows, zero in the result, are not computed
-    rows = valid.nonzero()[:, 0]
-    for s in range(0, rows.shape[0], chunk):
-        i = rows[s:s + chunk]
-        patch = gather_patches_plain(padded, layer[i], r[i], c[i], pn)
-        hist[i] = _hist_chunk(patch, r[i], c[i], cos_t[i], sin_t[i],
-                              radius[i], ori[i], hw, window, cfg)
+    frames = [a.reshape(nb, -1) for a in (layer, r, c, cos_t, sin_t, radius,
+                                          ori, valid)]
+    out = hist.reshape(nb, -1, d + 2, d + 2, n + 2)
+    for b in range(nb):
+        lay, rr, cc, ct, st, rad, ori_b, ok = (a[b] for a in frames)
+        lay = stack_layer(lay, nlay, b)
+        # each row's histogram depends on its own keypoint only, so the
+        # invalid rows, zero in the result, are not computed
+        rows = ok.nonzero()[:, 0]
+        for s in range(0, rows.shape[0], chunk):
+            i = rows[s:s + chunk]
+            patch = gather_patches_plain(stack, lay[i], rr[i], cc[i], pn)
+            out[b, i] = _hist_chunk(patch, rr[i], cc[i], ct[i], st[i],
+                                    rad[i], ori_b[i], hw, window, cfg)
     return hist
 
 
@@ -165,10 +171,10 @@ def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,
                     ori: torch.Tensor, valid: torch.Tensor,
                     cfg: SIFTConfig, chunk: int = 64,
                     row_bounds=None) -> torch.Tensor:
-    """K3-desc: (N, d+2, d+2, n+2) raw descriptor histograms (arguments
-    as descriptor_hist_plain). CPU tensors take the plain version, in
-    chunks of `chunk`; CUDA tensors launch the kernel once, one block
-    per keypoint."""
+    """K3-desc: raw descriptor histograms (arguments and result as
+    descriptor_hist_plain). CPU tensors take the plain version, in
+    chunks of `chunk`; CUDA tensors launch the kernel once for all
+    frames, one block per keypoint."""
     _check_args(padded, layer, r, c, cos_t, sin_t, radius, ori, valid, cfg)
     if padded.device.type == "cpu":
         return descriptor_hist_plain(padded, layer, r, c, cos_t, sin_t,
@@ -182,13 +188,16 @@ def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,
         raise ValueError(f"the kernel bins into {_KERNEL_WIDTH}x"
                          f"{_KERNEL_WIDTH}x{_KERNEL_BINS}, not {d}x{d}x{n}")
     dev = padded.device
-    padded = padded.contiguous()
-    layer, r, c, radius = (v.to(device=dev, dtype=torch.int32).contiguous()
-                           for v in (layer, r, c, radius))
-    cos_t, sin_t, ori = (v.to(device=dev, dtype=torch.float32).contiguous()
-                         for v in (cos_t, sin_t, ori))
-    valid = valid.to(device=dev, dtype=torch.bool).contiguous()
-    nlay, hp, wp = padded.shape
+    stack, nb, _ = frame_stack(padded.contiguous())
+    shape = layer.shape
+    layer, r, c, radius = (
+        v.to(device=dev, dtype=torch.int32).reshape(-1).contiguous()
+        for v in (layer, r, c, radius))
+    cos_t, sin_t, ori = (
+        v.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
+        for v in (cos_t, sin_t, ori))
+    valid = valid.to(device=dev, dtype=torch.bool).reshape(-1).contiguous()
+    nlay, hp, wp = stack.shape
     row_lo, row_hi = row_window(row_bounds,
                                 hp - 2 * (cfg.descr_patch_radius + 1))
     k = layer.shape[0]
@@ -196,14 +205,14 @@ def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,
                       device=dev)
     with torch.cuda.device(dev):
         err = _build.library().sift_descr_hist(
-            padded.data_ptr(), layer.data_ptr(), r.data_ptr(), c.data_ptr(),
+            stack.data_ptr(), layer.data_ptr(), r.data_ptr(), c.data_ptr(),
             cos_t.data_ptr(), sin_t.data_ptr(), radius.data_ptr(),
-            ori.data_ptr(), valid.data_ptr(), out.data_ptr(), k, nlay, hp,
-            wp, cfg.descr_patch_radius, row_lo, row_hi,
+            ori.data_ptr(), valid.data_ptr(), out.data_ptr(), k, nb, nlay,
+            hp, wp, cfg.descr_patch_radius, row_lo, row_hi,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sift_descr_hist")
     descriptor_hist.launches += 1
-    return out
+    return out.reshape(*shape, d + 2, d + 2, n + 2)
 
 
 descriptor_hist.launches = 0

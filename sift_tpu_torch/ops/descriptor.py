@@ -8,7 +8,8 @@ reference's normalization chain -- L2-clip at 0.2*||v||, x512, uchar
 saturate, re-multiply, L1-normalize, sqrt (src/sift.cpp:689-721).
 
 K3-desc (ops/descr_hist_cuda.py) turns each keypoint's window into its
-raw (d+2)x(d+2)x(n+2) histogram, one launch per octave on the card;
+raw (d+2)x(d+2)x(n+2) histogram, one launch per octave on the card (for
+all frames of a batch);
 on the CPU its plain version contracts soft one-hots in chunks of 64
 keypoints. The per-keypoint parameters are computed here, once, for
 both; the circular fold and the normalization chain run on (N, 128).
@@ -86,7 +87,9 @@ def normalize_hist(hist: torch.Tensor, valid: torch.Tensor,
 def descriptors_octave(gauss: torch.Tensor, kp: Keypoints,
                        cfg: SIFTConfig = DEFAULT_CONFIG,
                        chunk: int = 64, row_bounds=None) -> torch.Tensor:
-    """Descriptors for one octave's keypoint batch: (N,) -> (N, 128).
+    """Descriptors for one octave's keypoint batch: (N,) -> (N, 128) on
+    an (S, H, W) stack, or (B, N) -> (B, N, 128) on B frames'
+    (B, S, H, W) stack.
 
     kp fields are octave space (integer centre r, c; layer; size);
     invalid slots yield zero rows. row_bounds: optional (lo, hi) local
@@ -95,14 +98,18 @@ def descriptors_octave(gauss: torch.Tensor, kp: Keypoints,
     """
     rd = cfg.descr_patch_radius
     nl = cfg.n_octave_layers
-    _, h, w = gauss.shape
+    h, w = gauss.shape[-2:]
     pad = rd + 1
     # keypoints sit on layers 1..nl (refine clamps, sift.cpp:332);
     # invalid slots may carry layer 0, which the window start clamps
-    padded = F.pad(gauss[1:1 + nl], (pad, pad, pad, pad))
-    inv_scale = torch.exp2(-kp.octave[:1].to(torch.float32))
+    # inside the slot's frame
+    padded = F.pad(gauss[..., 1:1 + nl, :, :], (pad, pad, pad, pad))
+    inv_scale = torch.exp2(-kp.octave[..., :1].to(torch.float32))
     prm = descriptor_params(kp.size, kp.angle, inv_scale, (h, w), cfg)
     hist = descriptor_hist(padded, kp.layer - 1, kp.r, kp.c, prm.cos_t,
                            prm.sin_t, prm.radius, prm.ori, kp.valid, cfg,
                            chunk, row_bounds)
-    return normalize_hist(hist, kp.valid, cfg)
+    # the fold and the normalization chain are row-wise: one (B*N,) batch
+    out = normalize_hist(hist.reshape(-1, *hist.shape[-3:]),
+                         kp.valid.reshape(-1), cfg)
+    return out.reshape(*kp.valid.shape, out.shape[-1])

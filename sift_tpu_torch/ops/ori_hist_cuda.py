@@ -11,6 +11,11 @@ of the plain version; they differ only in the order of the sums.
 A sample counts where its row lies strictly inside (row_lo, row_hi - 1),
 (0, h) by default: a row band of a larger image passes the local rows
 of the image's own edges (`row_window`).
+
+One call takes one frame, an (L, Hp, Wp) stack with (N,) keypoint
+arguments, or B frames, a (B, L, Hp, Wp) stack with (B, N) arguments:
+one launch for all B·N keypoints over the (B·L, Hp, Wp) stack, each
+keypoint's layer clamped inside its own frame (`stack_layer`).
 """
 
 from __future__ import annotations
@@ -25,19 +30,48 @@ from sift_tpu_torch.ops.ori_gather_cuda import gather_patches_plain
 _KERNEL_BINS = 36     # csrc/ori_hist.cu: kBins
 
 
+def check_frames(padded, pad: int, *kp_args) -> None:
+    """An (L, Hp, Wp) float32 stack with (N,) keypoint arguments, or a
+    (B, L, Hp, Wp) one with (B, N) arguments, padded by `pad`."""
+    if padded.dtype != torch.float32 or padded.dim() not in (3, 4):
+        raise ValueError(f"source must be (L, Hp, Wp) or (B, L, Hp, Wp) "
+                         f"float32, got {tuple(padded.shape)} {padded.dtype}")
+    if min(padded.shape[-2:]) < 2 * pad + 1:
+        raise ValueError(f"source {tuple(padded.shape)} is not padded by "
+                         f"{pad}")
+    shape = kp_args[0].shape
+    if (any(a.shape != shape for a in kp_args)
+            or len(shape) != padded.dim() - 2
+            or shape[:-1] != padded.shape[:-3]):
+        raise ValueError(f"keypoint arguments must be (N,) tensors of one "
+                         f"shape for an (L, Hp, Wp) source, (B, N) for a "
+                         f"(B, L, Hp, Wp) one; got {tuple(padded.shape)} "
+                         f"and {[tuple(a.shape) for a in kp_args]}")
+
+
 def _check_args(padded, layer, r, c, radius, expf_scale,
                 cfg: SIFTConfig) -> None:
-    rp = cfg.ori_patch_radius
-    if padded.dtype != torch.float32 or padded.dim() != 3:
-        raise ValueError(f"orientation source must be (L, Hp, Wp) float32, "
-                         f"got {tuple(padded.shape)} {padded.dtype}")
-    if min(padded.shape[1:]) < 2 * rp + 3:
-        raise ValueError(f"source {tuple(padded.shape)} is not padded by "
-                         f"{rp + 1}")
-    if not (layer.shape == r.shape == c.shape == radius.shape
-            == expf_scale.shape) or layer.dim() != 1:
-        raise ValueError("keypoint arguments must be (N,) tensors of one "
-                         "shape")
+    check_frames(padded, cfg.ori_patch_radius + 1, layer, r, c, radius,
+                 expf_scale)
+
+
+def frame_stack(padded: torch.Tensor):
+    """(stack, frames, layers per frame): a (B, L, Hp, Wp) source as the
+    (B·L, Hp, Wp) stack the kernels read; an (L, Hp, Wp) one is a single
+    frame."""
+    if padded.dim() == 3:
+        return padded, 1, padded.shape[0]
+    nb, nlay = padded.shape[:2]
+    return padded.reshape(nb * nlay, *padded.shape[2:]), nb, nlay
+
+
+def stack_layer(layer: torch.Tensor, n_layers: int,
+                frame: int) -> torch.Tensor:
+    """Frame `frame`'s keypoint layers -> planes of the stacked frames:
+    clamped to 0..n_layers - 1 inside the frame, as lax.dynamic_slice
+    clamps a window's start in one frame's stack, then offset to the
+    frame's planes; csrc/hist_common.cuh load_window, line for line."""
+    return layer.clamp(0, n_layers - 1) + frame * n_layers
 
 
 def row_window(row_bounds, h: int):
@@ -60,28 +94,17 @@ def hist_onehot(contrib: torch.Tensor, bins: torch.Tensor,
     return torch.bmm(onehot, contrib[:, :, None])[:, :, 0]
 
 
-def orientation_hist_plain(padded: torch.Tensor, layer: torch.Tensor,
-                           r: torch.Tensor, c: torch.Tensor,
-                           radius: torch.Tensor, expf_scale: torch.Tensor,
-                           cfg: SIFTConfig, row_bounds=None) -> torch.Tensor:
-    """Plain PyTorch K3-ori: one max-radius patch per keypoint, masked to
-    its radius and the image interior, then a one-hot contraction.
-
-    padded: (L, Hp, Wp), the octave's layers padded by
-    ori_patch_radius + 1; layer: (N,) index into it; r, c: (N,) octave
-    pixel; radius (int32), expf_scale: (N,) from
-    orientation.orientation_params; row_bounds: optional (lo, hi) rows
-    of the true image (`row_window`). Returns (N, ori_hist_bins).
-    """
-    _check_args(padded, layer, r, c, radius, expf_scale, cfg)
+def _ori_hist_frame(stack, layer, r, c, radius, expf_scale,
+                    cfg: SIFTConfig, row_bounds) -> torch.Tensor:
+    """One frame's (N, n) histograms; layer indexes the stack."""
     n = cfg.ori_hist_bins
     rp = cfg.ori_patch_radius
-    h, w = (s - 2 * (rp + 1) for s in padded.shape[1:])
+    h, w = (s - 2 * (rp + 1) for s in stack.shape[1:])
     row_lo, row_hi = row_window(row_bounds, h)
     # pixel (r, c) lands at patch[rp+1, rp+1]
-    patches = gather_patches_plain(padded, layer, r, c, 2 * rp + 3)
+    patches = gather_patches_plain(stack, layer, r, c, 2 * rp + 3)
 
-    off = torch.arange(-rp, rp + 1, dtype=torch.int32, device=padded.device)
+    off = torch.arange(-rp, rp + 1, dtype=torch.int32, device=stack.device)
     ii = off[None, :, None]                   # row offsets
     jj = off[None, None, :]                   # col offsets
     r2_grid = (ii * ii + jj * jj).to(torch.float32)
@@ -106,13 +129,41 @@ def orientation_hist_plain(padded: torch.Tensor, layer: torch.Tensor,
     return hist_onehot(contrib.reshape(k, -1), bins.reshape(k, -1), n)
 
 
+def orientation_hist_plain(padded: torch.Tensor, layer: torch.Tensor,
+                           r: torch.Tensor, c: torch.Tensor,
+                           radius: torch.Tensor, expf_scale: torch.Tensor,
+                           cfg: SIFTConfig, row_bounds=None) -> torch.Tensor:
+    """Plain PyTorch K3-ori: one max-radius patch per keypoint, masked to
+    its radius and the image interior, then a one-hot contraction.
+
+    padded: (L, Hp, Wp), the octave's layers padded by
+    ori_patch_radius + 1, or (B, L, Hp, Wp) for B frames; layer: (N,)
+    index into the frame's L planes, or (B, N); r, c: octave pixel;
+    radius (int32), expf_scale: from orientation.orientation_params;
+    row_bounds: optional (lo, hi) rows of the true image
+    (`row_window`). Returns (N, ori_hist_bins), or (B, N, ...). Frame
+    b's keypoints read the flattened stack at stack_layer(layer, L, b),
+    as the kernel does, one frame at a time: a frame's sums never
+    depend on the other frames.
+    """
+    _check_args(padded, layer, r, c, radius, expf_scale, cfg)
+    stack, nb, nlay = frame_stack(padded)
+    args = [a.reshape(nb, -1) for a in (layer, r, c, radius, expf_scale)]
+    hist = torch.stack([
+        _ori_hist_frame(stack, stack_layer(args[0][b], nlay, b),
+                        *(a[b] for a in args[1:]), cfg, row_bounds)
+        for b in range(nb)])
+    return hist.reshape(*layer.shape, cfg.ori_hist_bins)
+
+
 def orientation_hist(padded: torch.Tensor, layer: torch.Tensor,
                      r: torch.Tensor, c: torch.Tensor, radius: torch.Tensor,
                      expf_scale: torch.Tensor, cfg: SIFTConfig,
                      row_bounds=None) -> torch.Tensor:
-    """K3-ori: (N, 36) raw orientation histograms (arguments as
+    """K3-ori: raw orientation histograms (arguments and result as
     orientation_hist_plain). CPU tensors take the plain version; CUDA
-    tensors launch the kernel, one block per keypoint."""
+    tensors launch the kernel once for all frames, one block per
+    keypoint."""
     _check_args(padded, layer, r, c, radius, expf_scale, cfg)
     if padded.device.type == "cpu":
         return orientation_hist_plain(padded, layer, r, c, radius,
@@ -123,13 +174,14 @@ def orientation_hist(padded: torch.Tensor, layer: torch.Tensor,
     if cfg.ori_hist_bins != _KERNEL_BINS:
         raise ValueError(f"the kernel bins into {_KERNEL_BINS}, not "
                          f"{cfg.ori_hist_bins}")
-    padded = padded.contiguous()
+    stack, nb, _ = frame_stack(padded.contiguous())
+    shape = layer.shape
     layer, r, c, radius = (
-        v.to(device=padded.device, dtype=torch.int32).contiguous()
-        for v in (layer, r, c, radius))
+        v.to(device=padded.device, dtype=torch.int32).reshape(-1)
+        .contiguous() for v in (layer, r, c, radius))
     expf_scale = expf_scale.to(device=padded.device,
-                               dtype=torch.float32).contiguous()
-    nlay, hp, wp = padded.shape
+                               dtype=torch.float32).reshape(-1).contiguous()
+    nlay, hp, wp = stack.shape
     row_lo, row_hi = row_window(row_bounds,
                                 hp - 2 * (cfg.ori_patch_radius + 1))
     n = layer.shape[0]
@@ -137,13 +189,13 @@ def orientation_hist(padded: torch.Tensor, layer: torch.Tensor,
                       device=padded.device)
     with torch.cuda.device(padded.device):
         err = _build.library().sift_ori_hist(
-            padded.data_ptr(), layer.data_ptr(), r.data_ptr(), c.data_ptr(),
-            radius.data_ptr(), expf_scale.data_ptr(), out.data_ptr(), n,
+            stack.data_ptr(), layer.data_ptr(), r.data_ptr(), c.data_ptr(),
+            radius.data_ptr(), expf_scale.data_ptr(), out.data_ptr(), n, nb,
             nlay, hp, wp, cfg.ori_patch_radius, row_lo, row_hi,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sift_ori_hist")
     orientation_hist.launches += 1
-    return out
+    return out.reshape(*shape, _KERNEL_BINS)
 
 
 orientation_hist.launches = 0

@@ -9,7 +9,8 @@ cvRound(4.5*scl_octv) window, Gaussian-weighted with sigma
 interpolation, at most max_ori_peaks per keypoint.
 
 K3-ori (ops/ori_hist_cuda.py) turns each keypoint's window into its
-raw 36-bin histogram, one launch per octave on the card; on the CPU
+raw 36-bin histogram, one launch per octave on the card (for all frames
+of a batch); on the CPU
 its plain version gathers one fixed max-radius patch per keypoint,
 masks the samples outside its radius or the image interior, and
 contracts one-hots (the JAX package's "onehot_t" math). Neither uses
@@ -51,41 +52,43 @@ def orientation_peaks(gauss: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Up to max_ori_peaks orientations per refined keypoint.
 
-    gauss: (S, H, W) Gaussian stack of one octave.
-    layer/r/c/scl_octv/valid: (N,) refined keypoints (octave space).
+    gauss: (S, H, W) Gaussian stack of one octave, or (B, S, H, W) for B
+    frames.
+    layer/r/c/scl_octv/valid: (N,) refined keypoints (octave space), or
+    (B, N).
     row_bounds: optional (lo, hi), the rows of gauss that are the true
     image's first row and one past its last (a row band of a larger
     image, parallel/spatial.py); samples outside are out-of-image
     samples (src/sift.cpp:411). Default (0, H).
-    Returns (angles (N, K) degrees, peak_valid (N, K)).
+    Returns (angles (N, K) degrees, peak_valid (N, K)), or (B, N, K).
     """
     n = cfg.ori_hist_bins
     rp = cfg.ori_patch_radius
     nl = cfg.n_octave_layers
     pad = rp + 1
     # refined keypoints sit on layers 1..nl (refine clamps, sift.cpp:332)
-    padded = F.pad(gauss[1:1 + nl], (pad, pad, pad, pad))
+    padded = F.pad(gauss[..., 1:1 + nl, :, :], (pad, pad, pad, pad))
     radius, expf_scale = orientation_params(scl_octv, cfg)
     hist = orientation_hist(padded, layer - 1, r, c, radius, expf_scale, cfg,
                             row_bounds)
 
     # circular (1,4,6,4,1)/16 smoothing (src/sift.cpp:440-451)
-    sm = (hist.roll(2, 1) + hist.roll(-2, 1)) * (1.0 / 16.0) \
-        + (hist.roll(1, 1) + hist.roll(-1, 1)) * (4.0 / 16.0) \
+    sm = (hist.roll(2, -1) + hist.roll(-2, -1)) * (1.0 / 16.0) \
+        + (hist.roll(1, -1) + hist.roll(-1, -1)) * (4.0 / 16.0) \
         + hist * (6.0 / 16.0)
 
-    maxval = sm.max(dim=1, keepdim=True).values
-    left = sm.roll(1, 1)
-    right = sm.roll(-1, 1)
+    maxval = sm.max(dim=-1, keepdim=True).values
+    left = sm.roll(1, -1)
+    right = sm.roll(-1, -1)
     peak = (sm > left) & (sm > right) & (sm >= maxval * cfg.ori_peak_ratio)
     pv, pj = stable_top_k(torch.where(peak, sm, -1.0), cfg.max_ori_peaks)
-    hl = left.gather(1, pj)
-    hr = right.gather(1, pj)
-    hc = sm.gather(1, pj)
+    hl = left.gather(-1, pj)
+    hr = right.gather(-1, pj)
+    hc = sm.gather(-1, pj)
     bin_f = pj.to(torch.float32) + 0.5 * (hl - hr) / (hl - 2.0 * hc + hr)
     bin_f = torch.where(bin_f < 0, bin_f + n,
                         torch.where(bin_f >= n, bin_f - n, bin_f))
     angle = 360.0 - (360.0 / n) * bin_f
     angle = torch.where((angle - 360.0).abs() < _FLT_EPS, 0.0, angle)
-    ok = (pv > 0) & valid[:, None]
+    ok = (pv > 0) & valid[..., None]
     return angle, ok

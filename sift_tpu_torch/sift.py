@@ -42,21 +42,24 @@ def _octave_tail(gauss: torch.Tensor, dog: torch.Tensor,
                  layer0: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
                  valid0: torch.Tensor, octave: int, cfg: SIFTConfig,
                  out_cap: int, row_bounds=None) -> Keypoints:
-    """Refine + orient + compact one frame's octave, given the candidate
-    scan's (cap,) output; split out of detect_octave so the batched path
-    can run the scan for all frames at once (sift_tpu/sift.py:49-99).
-    row_bounds: local rows of the true image when the stack is a row
-    band of it (parallel/spatial.py)."""
+    """Refine + orient + compact one octave, given the candidate scan's
+    output: one frame's (S, H, W) / (D, H, W) stacks with (cap,)
+    candidates, or B frames' (B, S, H, W) / (B, D, H, W) stacks with
+    (B, cap) candidates, every stage once for all frames (sift_tpu
+    vmaps this tail, sift_tpu/sift.py:236-250). Split out of
+    detect_octave so the batched path can run the scan for all frames at
+    once (sift_tpu/sift.py:49-99). row_bounds: local rows of the true
+    image when the stack is a row band of it (parallel/spatial.py)."""
     rf = ref.refine_candidates(dog, layer0, r0, c0, valid0, cfg,
                                row_bounds=row_bounds)
-    cap = layer0.shape[0]
+    cap = layer0.shape[-1]
 
     # mid-compaction: refinement rejects most candidates, so orientation
     # and descriptors run on out_cap slots (sift_tpu/sift.py:62-68)
     if out_cap < cap:
         mscore = torch.where(rf.valid, rf.contr.abs() + 10.0, -1.0)
         _, midx = stable_top_k(mscore, out_cap)
-        rf = ref.Refined(*(a[midx] for a in rf))
+        rf = ref.Refined(*(a.gather(-1, midx) for a in rf))
 
     nl = cfg.n_octave_layers
     lay_f = rf.layer.to(torch.float32)
@@ -70,20 +73,20 @@ def _octave_tail(gauss: torch.Tensor, dog: torch.Tensor,
     scale = float(1 << octave)
 
     def tile(a):
-        return a.repeat_interleave(k)
+        return a.repeat_interleave(k, dim=-1)
 
     kp = Keypoints(
         x=tile((rf.c.to(torch.float32) + rf.xc) * scale),
         y=tile((rf.r.to(torch.float32) + rf.xr) * scale),
         size=tile(size),
-        angle=angles.reshape(-1),
+        angle=angles.flatten(-2),
         response=tile(rf.contr.abs()),
-        octave=torch.full((rf.layer.shape[0] * k,), octave,
-                          dtype=torch.int32, device=dog.device),
+        octave=torch.full(ok.flatten(-2).shape, octave, dtype=torch.int32,
+                          device=dog.device),
         layer=tile(rf.layer),
         r=tile(rf.r),
         c=tile(rf.c),
-        valid=ok.reshape(-1),
+        valid=ok.flatten(-2),
     )
     # compact (slots*k) -> out_cap slots (valid first, then response)
     score = torch.where(kp.valid, kp.response + 10.0, -1.0)
@@ -97,12 +100,13 @@ def _octave_usable(shape, cfg: SIFTConfig) -> bool:
     return min(shape) >= max(2 * cfg.img_border + 3, 8)
 
 
-def _empty_octave(out_cap: int, cfg: SIFTConfig, device
+def _empty_octave(out_cap: int, cfg: SIFTConfig, device, frames: tuple = ()
                   ) -> Tuple[Keypoints, torch.Tensor]:
     """A too-small octave's out_cap slots: invalid keypoints and zero
-    descriptors."""
-    return Keypoints.zeros(out_cap, device), torch.zeros(
-        (out_cap, cfg.descr_size), dtype=torch.float32, device=device)
+    descriptors, for one frame or with leading `frames` axes."""
+    return Keypoints.zeros(out_cap, device, frames), torch.zeros(
+        (*frames, out_cap, cfg.descr_size), dtype=torch.float32,
+        device=device)
 
 
 def detect(img: torch.Tensor, cfg: SIFTConfig = DEFAULT_CONFIG
@@ -182,33 +186,27 @@ def detect_and_compute_batch(imgs: torch.Tensor,
     """Single-card throughput mode: B frames in one call.
 
     (B, H, W) -> (Keypoints with (B, N) fields, (B, N, 128)
-    descriptors); row b equals detect_and_compute(imgs[b]). The pyramid
-    and the candidate scan run batched (K1-batch and K2-batch: one
-    launch per blur and per scan per octave for all B frames). The tail
-    -- refine, orientation, compaction, descriptors -- runs frame by
-    frame over _octave_tail and descriptors_octave, which computes what
-    sift_tpu's vmap over it computes, with each frame's arithmetic that
-    of detect_and_compute. Use kp.frame(b) for a per-frame view.
+    descriptors); row b equals detect_and_compute(imgs[b]). Every stage
+    of an octave runs once for all B frames: the pyramid and the
+    candidate scan (K1-batch, the compact scan and the select), then
+    _octave_tail and descriptors_octave over (B, ...) tensors, as
+    sift_tpu's vmap over the tail (K3-ori and K3-desc: one launch per
+    octave over the B frames' stacked planes). Use kp.frame(b) for a
+    per-frame view.
     """
     nb = imgs.shape[0]
     octs = pyr.build_gaussian_pyramid_batch(imgs, cfg)
     dogs = pyr.build_dog_pyramid_batch(octs)
-    kp_parts: List[List[Keypoints]] = [[] for _ in range(nb)]
-    d_parts: List[List[torch.Tensor]] = [[] for _ in range(nb)]
+    kp_parts: List[Keypoints] = []
+    d_parts: List[torch.Tensor] = []
     for o in range(cfg.n_octaves):
         out_cap = cfg.out_caps[o]
         if _octave_usable(octs[o].shape[2:], cfg):
             cands = ext.top_candidates_batch(dogs[o], cfg.detect_caps[o], cfg)
-            for b in range(nb):
-                kp = _octave_tail(octs[o][b], dogs[o][b],
-                                  *(a[b] for a in cands), o, cfg, out_cap)
-                kp_parts[b].append(kp)
-                d_parts[b].append(
-                    desc_mod.descriptors_octave(octs[o][b], kp, cfg))
+            kp = _octave_tail(octs[o], dogs[o], *cands, o, cfg, out_cap)
+            d = desc_mod.descriptors_octave(octs[o], kp, cfg)
         else:
-            for b in range(nb):
-                kp, d = _empty_octave(out_cap, cfg, imgs.device)
-                kp_parts[b].append(kp)
-                d_parts[b].append(d)
-    return (Keypoints.stack([Keypoints.concatenate(p) for p in kp_parts]),
-            torch.stack([torch.cat(d) for d in d_parts]))
+            kp, d = _empty_octave(out_cap, cfg, imgs.device, (nb,))
+        kp_parts.append(kp)
+        d_parts.append(d)
+    return Keypoints.concatenate(kp_parts), torch.cat(d_parts, dim=1)

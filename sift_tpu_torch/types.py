@@ -18,7 +18,7 @@ import torch
 class Keypoints:
     """Padded keypoint batch. All fields are (N,) tensors, or (B, N) for
     the B frames of sift.detect_and_compute_batch (`frame(b)` gives
-    frame b's (N,) view; `stack` builds the (B, N) value).
+    frame b's (N,) view).
 
     x/y in base-image coordinates, size the full-resolution diameter,
     angle in degrees (the reference's 360-minus convention), response
@@ -46,12 +46,15 @@ class Keypoints:
         return self.valid.sum(dtype=torch.int32)
 
     @staticmethod
-    def zeros(n: int, device: torch.device | str = "cpu") -> "Keypoints":
-        f = torch.zeros((n,), dtype=torch.float32, device=device)
-        i = torch.zeros((n,), dtype=torch.int32, device=device)
+    def zeros(n: int, device: torch.device | str = "cpu",
+              frames: tuple = ()) -> "Keypoints":
+        """n invalid slots: (N,) fields, or frames + (N,), e.g. (B, N)."""
+        shape = (*frames, n)
+        f = torch.zeros(shape, dtype=torch.float32, device=device)
+        i = torch.zeros(shape, dtype=torch.int32, device=device)
         return Keypoints(x=f, y=f, size=f, angle=f, response=f,
                          octave=i, layer=i, r=i, c=i,
-                         valid=torch.zeros((n,), dtype=torch.bool,
+                         valid=torch.zeros(shape, dtype=torch.bool,
                                            device=device))
 
     def frame(self, b: int) -> "Keypoints":
@@ -60,18 +63,14 @@ class Keypoints:
                             for f in dataclasses.fields(self)})
 
     def gather(self, idx: torch.Tensor) -> "Keypoints":
-        return Keypoints(**{f.name: getattr(self, f.name)[idx]
+        """Slots idx along the last axis: (K,) of (N,) fields, or (B, K)
+        of (B, N) fields, frame by frame."""
+        return Keypoints(**{f.name: getattr(self, f.name).gather(-1, idx)
                             for f in dataclasses.fields(self)})
 
     @staticmethod
     def concatenate(parts: Sequence["Keypoints"]) -> "Keypoints":
+        """Parts joined along the last (slot) axis."""
         return Keypoints(**{
-            f.name: torch.cat([getattr(p, f.name) for p in parts])
-            for f in dataclasses.fields(Keypoints)})
-
-    @staticmethod
-    def stack(frames: Sequence["Keypoints"]) -> "Keypoints":
-        """B frames of (N,) fields -> one value with (B, N) fields."""
-        return Keypoints(**{
-            f.name: torch.stack([getattr(p, f.name) for p in frames])
+            f.name: torch.cat([getattr(p, f.name) for p in parts], dim=-1)
             for f in dataclasses.fields(Keypoints)})

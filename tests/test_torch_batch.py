@@ -207,8 +207,8 @@ def test_batch_descriptors_agree_with_jax(batch_results):
 
 def test_batch_rows_equal_single_frame(frames, batch_results):
     # each row of the batch is detect_and_compute on that frame, exactly:
-    # the pyramid and scan are the same arithmetic batched, the tail runs
-    # per frame
+    # the pyramid, the scan and the tail are the same arithmetic batched
+    # (the plain K3-ori and K3-desc bin one frame at a time)
     _, (tkp, td) = batch_results
     assert tkp.capacity == sum(TCFG.out_caps)
     assert tuple(tkp.x.shape) == (frames.shape[0], tkp.capacity)

@@ -21,13 +21,19 @@ clocks:
 and, under torch.profiler, one pair step and one batch step: device
 busy time (the union of the device events' intervals), device events
 (kernel launches, copies and fills), the device time of the aten sort
-ops and the largest device ops, each per frame. Each process prints one JSON line; the summary and all
-lines go to --out. Needs one card.
+ops and the largest device ops, each per frame; and the sha256 of the
+bytes of every keypoint field and descriptor that detect_and_compute
+gives on the scene and detect_and_compute_batch on the 8 frames, so
+that equal digests show two trees computing the same bits. Each
+process prints one JSON line; the summary and all lines go to --out.
+Needs one card.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import hashlib
 import json
 import pathlib
 import statistics
@@ -60,6 +66,15 @@ def _wall_ms(fn, runs: int) -> list:
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) * 1e3)
     return out
+
+
+def _digest(kp, desc) -> str:
+    """sha256 of the bytes of every keypoint field and the descriptors."""
+    h = hashlib.sha256()
+    for f in dataclasses.fields(kp):
+        h.update(getattr(kp, f.name).cpu().numpy().tobytes())
+    h.update(desc.cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _profile(fn, frames: int) -> dict:
@@ -152,6 +167,8 @@ def worker(tree: pathlib.Path) -> dict:
         "octave0_descriptors_ms": statistics.median(desc0),
         "pair_profile": _profile(pair_step, 2),
         "batch_profile": _profile(batch_step, nb),
+        "single_sha256": _digest(*sift.detect_and_compute(scene, cfg)),
+        "batch_sha256": _digest(*sift.detect_and_compute_batch(frames, cfg)),
     }
 
 
@@ -213,7 +230,7 @@ def main() -> int:
             k: [r[k] for r in mine]
             for k in ("pair_fps", "batch_fps", "detect_and_compute_ms",
                       "octave0_descriptors_ms", "pair_peak_gib",
-                      "batch_peak_gib")}
+                      "batch_peak_gib", "single_sha256", "batch_sha256")}
         for step in ("pair_profile", "batch_profile"):
             summary[tree][step] = [
                 {k: r[step][k] for k in ("device_busy_ms_per_frame",
