@@ -25,8 +25,11 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      to the single-frame kernel; K1 and K1-batch also at widths that are
      not a multiple of 4 and on an input 4 bytes off a 16-byte boundary;
      K4 with tied duplicate rows in different train splits, and also on
-     rows 4 bytes off, at ragged N and M, M = 1 and M = 0; K3-ori and
-     K3-desc on octave
+     rows 4 bytes off, at ragged N and M, M = 1 and M = 0; K4 over the
+     batch step's 7 pairs in one launch, (7, 1536, 128) x (7, 1536, 128),
+     against its batched plain version, the single launch on each pair
+     and a second launch, bit for bit, timed beside 7 single launches;
+     K3-ori and K3-desc on octave
      0 of the 1080p scene with its real keypoints plus slots whose
      windows start outside the image, within rtol 1e-5 and
      atol 1e-5 * max|hist| per row of their plain versions on valid rows
@@ -37,6 +40,9 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      and invalid slots at stack layer -1, which in frames >= 1 must
      clamp inside their own frame), against their plain versions at the
      same bounds and, frame by frame, equal to the single-frame launch;
+     K3-desc again under sift_tpu's default bf16 arm (descr_rc_bf16) on
+     the same slots, one frame and B = 8, at the same bounds, timed
+     beside the f32 arm;
      K2's compact scan and the select kernel, as
      top_candidates and top_candidates_batch launch them, under
      torch.equal against top_candidates_plain (the stable sort of the
@@ -54,16 +60,21 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      a synthetic scene by a known homography must be found, with its
      corners within 2 px; K1 and K4 must have launched, the compact scan,
      the select kernel, K3-ori and K3-desc once per usable octave of
-     each frame, and the dense K2 and the bare gather K3 not at all; then
-     the steady-state time per detect_object and the frames/s of
-     bench.py's 1080p pair step (two detect+describe, one match);
+     each frame, and the dense K2 and the bare gather K3 not at all; the
+     same path under the bf16 descriptor arm: keypoints equal, 99 % of
+     the descriptor rows within 2e-2 L1 of the f32 run's and every row
+     within 5e-2, corners within 2 px; then the steady-state time per detect_object and the
+     frames/s of bench.py's 1080p pair step (two detect+describe, one
+     match);
   5. the throughput path at 1080p, B = 8 (frame i is the scene rolled by
      17 i columns): bench.py's batch step, detect_and_compute_batch plus
-     7 consecutive-frame matches, must launch K1-batch and K4, the
-     compact scan, the select kernel, K3-ori and K3-desc once per usable
-     octave for all 8 frames, and not the single-frame K1, the dense K2
-     or K2-batch; every row of the batch must equal detect_and_compute
-     on its frame; then its frames/s and peak device memory;
+     the 7 consecutive-frame matches in one batched match_ratio, must
+     launch K1-batch, K4 once, the compact scan, the select kernel,
+     K3-ori and K3-desc once per usable octave for all 8 frames, and not
+     the single-frame K1, the dense K2 or K2-batch; every row of the
+     batch must equal detect_and_compute on its frame, and each pair's
+     matches match_ratio on that pair (train_idx, good, distance bit for
+     bit); then its frames/s and peak device memory;
   6. the mapping path (sfm.mapping.run_mapping: detect + describe per
      frame, sequential K4 matches, incremental SfM, loop closures, pose
      graph, closure-aware BA, export), rendered by the port's cv2-free
@@ -145,6 +156,9 @@ SPIN_CYCLES_PER_S = 2.0e9
 # csrc/descr_hist.cu (expf, sqrtf and a division counted as one each)
 ORI_OPS_PER_SAMPLE = 26
 DESC_OPS_PER_SAMPLE = 70
+# the bf16 arm rounds 6 more values a sample: 4 row x column weights and
+# 2 orientation weights (csrc/descr_hist.cu corner_weights)
+DESC_BF16_OPS_PER_SAMPLE = DESC_OPS_PER_SAMPLE + 6
 # phase 6, the mapping path: (frames, (H, W)) of eval_mapping's gated
 # configuration, of tests/test_mapping.py's sequence and of the CLI's
 # default frame size; the plane textures' size
@@ -154,6 +168,14 @@ MAP_CLI = (24, (480, 640))
 MAP_TEXTURE_HW = (480, 640)
 # ate_final and reproj_rmse, CPU run against card run, relative
 MAP_CPU_CARD_RTOL = 0.10
+# phase 4: descriptor rows under the bf16 arm against the f32 arm's, L1
+# (sift_tpu/config.py:97-103: ~1e-2): 99 % of the valid rows within
+# BF16_DESC_L1 and every row within BF16_DESC_L1_MAX. The arm tips
+# uchar quantization counts (src/sift.cpp:709-713), so a few rows of a
+# 1080p frame pass 2e-2 in sift_tpu as in the port
+# (tools/torch_bf16_parity.py)
+BF16_DESC_L1 = 2e-2
+BF16_DESC_L1_MAX = 5e-2
 
 
 class SmokeFailure(Exception):
@@ -726,7 +748,7 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
     # K3-ori and K3-desc on octave 0 of the scene
     kp = sift.detect_octave(octs[0], dogs[0], 0, cfg.detect_caps[0], cfg,
                             cfg.out_caps[0])
-    phase_fused_hist(octs[0], kp, rng, record)
+    phase_fused_hist(octs[0], kp, rng, record, report)
     # and over the B = 8 frames of the batch step, one launch each
     kpb = sift._octave_tail(octb0, dogb0, *ext.top_candidates_batch(
         dogb0, cfg.detect_caps[0], cfg), 0, cfg, cfg.out_caps[0])
@@ -750,7 +772,7 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
           "K4: a tied duplicate did not resolve to the lowest row")
     err = float(torch.maximum((g1 - w1).abs().max(), (g2 - w2).abs().max()))
     edges = phase_knn_edges(q, tm)
-    p, span = launch_plan(n, m, q.device)
+    p, span = launch_plan(n, m, 1, q.device)
     ms = median_ms(lambda: knn2_l1_cuda(q, tm))
     pms = median_ms(lambda: knn2_l1_plain(q, tm))
     bnd = bound_ms(4.0 * (n + m) * 128 + 12 * n, 2.0 * n * m * 128,
@@ -763,7 +785,56 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
           f"({bnd[1]})")
     record("K4", "K4 top-2 L1 matcher", "sift_tpu_torch/csrc/knn2.cu",
            "sift_tpu/ops/match_pallas.py:83", err, ms, pms, bnd)
+    phase_knn_pairs(rng, n, m, dev, report["K4"])
     return report
+
+
+def phase_knn_pairs(rng, n: int, m: int, dev, row: dict) -> None:
+    """Phase 2, K4 over the batch step's BATCH - 1 pairs in one launch,
+    (G, N, 128) x (G, M, 128) at G = 7 and N = M = 1536, on knn_inputs
+    drawn for each pair (20 % of the train rows masked, tied
+    duplicates): idx, d1 and d2 bit for bit against the batched plain
+    version and, pair by pair, against the single launch on that pair;
+    two launches bit-identical. Timed beside G single launches; bound
+    G times the single pair's. Adds a "pairs" entry to K4's row."""
+    import torch
+    from sift_tpu_torch.ops.match_cuda import (knn2_l1_cuda, knn2_l1_plain,
+                                               launch_plan)
+    g = BATCH - 1
+    pairs = [knn_inputs(rng, n, m, dev) for _ in range(g)]
+    q = torch.stack([a for a, _ in pairs])
+    tm = torch.stack([b for _, b in pairs])
+    got, again = knn2_l1_cuda(q, tm), knn2_l1_cuda(q, tm)
+    want = knn2_l1_plain(q, tm)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"K4 over {g} pairs is not bit-identical to its plain version")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K4 over {g} pairs: two launches differ")
+    for k in range(g):
+        one = knn2_l1_cuda(q[k], tm[k])
+        check(all(torch.equal(a[k], b) for a, b in zip(got, one)),
+              f"K4 over {g} pairs: pair {k} differs from the single launch "
+              f"on it")
+    err = float(torch.maximum((got[1] - want[1]).abs().max(),
+                              (got[2] - want[2]).abs().max()))
+    p, span = launch_plan(n, m, g, dev)
+    ms = median_ms(lambda: knn2_l1_cuda(q, tm))
+    singles_ms = median_ms(lambda: [knn2_l1_cuda(q[k], tm[k])
+                                    for k in range(g)])
+    pms = median_ms(lambda: knn2_l1_plain(q, tm), runs=3)
+    bnd = bound_ms(g * (4.0 * (n + m) * 128 + 12 * n),
+                   g * 2.0 * n * m * 128, F32_ISSUE_PER_S)
+    print(f"phase 2 K4 top-2 L1 over {g} pairs {tuple(q.shape)} x "
+          f"{tuple(tm.shape)} in one launch: {p} train splits of {span} "
+          f"rows, idx, d1 and d2 bit-identical to the plain version, to "
+          f"the single launch on each pair and across two launches, "
+          f"max_abs_err={err!r} kernel {ms:.4f} ms, {g} single launches "
+          f"{singles_ms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})")
+    row["pairs"] = {"pairs": g, "max_abs_err": err, "ms": ms,
+                    "single_launches_ms": singles_ms, "plain_ms": pms,
+                    "bound_ms": float(bnd[0]), "bound_by": bnd[1]}
 
 
 def compact_bound(shape, n: int, nl: int) -> tuple:
@@ -969,10 +1040,13 @@ def phase_select(dogs, dogs_obj, dogsb, record) -> None:
            bs)
 
 
-def phase_fused_hist(gauss, kp, rng, record) -> None:
+def phase_fused_hist(gauss, kp, rng, record, report) -> None:
     """Phase 2, K3-ori and K3-desc: the octave-0 stack of the scene with
     its real keypoints (N = out_caps[0] slots) plus EXTRA_SLOTS valid
-    slots whose windows start outside the image (the starts clamp)."""
+    slots whose windows start outside the image (the starts clamp);
+    K3-desc under both arms of descr_rc_bf16."""
+    import dataclasses
+
     import torch
     import torch.nn.functional as F
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
@@ -1077,6 +1151,34 @@ def phase_fused_hist(gauss, kp, rng, record) -> None:
            "sift_tpu_torch/csrc/descr_hist.cu",
            "sift_tpu/ops/ori_gather_pallas.py:109", err, ms, pms, bnd)
 
+    # K3-desc under sift_tpu's default bf16 arm, on the same slots
+    bcfg = dataclasses.replace(cfg, descr_rc_bf16=True)
+    bargs = args[:-1] + (bcfg,)
+    got_b, again_b = descriptor_hist(*bargs), descriptor_hist(*bargs)
+    want_b = descriptor_hist_plain(*bargs)
+    torch.cuda.synchronize()
+    check(torch.equal(got_b, again_b), "K3-desc (bf16 arm): two launches "
+                                       "differ")
+    check(bool((got_b[~valid] == 0).all()),
+          "K3-desc (bf16 arm): a slot with valid false is not zero")
+    check(not torch.equal(got_b, got), "K3-desc: the bf16 arm gives the "
+                                       "f32 arm's bits")
+    err_b = compare("K3-desc (bf16 arm)", got_b, want_b, valid)
+    real_b = real_args[:-1] + (bcfg,)
+    ms_b = median_ms(lambda: descriptor_hist(*real_b))
+    pms_b = median_ms(lambda: descriptor_hist_plain(*real_b))
+    bnd_b = window_bound(tuple(pd.shape), 2 * rd + 3, rd, lay, rr, cc, rad,
+                         keep, 29 * n_real, 4 * 360 * n_real,
+                         DESC_BF16_OPS_PER_SAMPLE)
+    print(f"phase 2 K3-desc bf16 arm p={2 * rd + 3} N={n_real}+{e}: "
+          f"max_abs_err={err_b!r} (two launches bit-identical) kernel "
+          f"{ms_b:.4f} ms (f32 arm {ms:.4f} ms), plain {pms_b:.4f} ms at "
+          f"N={n_real}, bound {bnd_b[0]:.4f} ms ({bnd_b[1]})")
+    report["K3-desc"]["bf16"] = {
+        "keypoints": n_real, "max_abs_err": err_b, "ms": ms_b,
+        "plain_ms": pms_b, "bound_ms": float(bnd_b[0]),
+        "bound_by": bnd_b[1]}
+
 
 
 def phase_fused_hist_batch(gauss, kp, rng, report) -> None:
@@ -1090,7 +1192,11 @@ def phase_fused_hist_batch(gauss, kp, rng, report) -> None:
     K3-ori bins (all) and K3-desc bins (valid) within rtol 1e-5 and
     atol 1e-5 * max|hist| per row; each frame also equal to the
     single-frame launch on that frame alone, bit for bit; timed on the
-    B x out_caps[0] real slots. Adds a "batch" entry to each row."""
+    B x out_caps[0] real slots; K3-desc under both arms of
+    descr_rc_bf16. Adds a "batch" entry to each row (and "batch_bf16" to
+    K3-desc's)."""
+    import dataclasses
+
     import torch
     import torch.nn.functional as F
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
@@ -1150,7 +1256,7 @@ def phase_fused_hist_batch(gauss, kp, rng, report) -> None:
         return float((g - x).abs().max())
 
     def run(name, fn, plain, args, rows, n_in, n_out, ops, rad, radius,
-            keep):
+            keep, key="batch"):
         got, again = fn(*args), fn(*args)
         want = plain(*args)
         torch.cuda.synchronize()
@@ -1174,14 +1280,15 @@ def phase_fused_hist_batch(gauss, kp, rng, report) -> None:
                            2 * rad + 3, rad, lay, rr, cc, rd_, kp_,
                            n_in * nb * n_real, n_out * nb * n_real, ops,
                            frames=nb)
-        print(f"phase 2 {name} over B={nb} frames {tuple(stack.shape)} "
+        print(f"phase 2 {name} ({key}) over B={nb} frames "
+              f"{tuple(stack.shape)} "
               f"N={nb}x({n_real}+{e}+{t}) (valid {int(valid.sum())}, "
               f"{t} invalid slots a frame at stack layer -1): "
               f"max_abs_err={err!r} (two launches bit-identical, each "
               f"frame equal to its single-frame launch) kernel {ms:.4f} ms, "
               f"plain {pms:.4f} ms at N={nb}x{n_real}, bound "
               f"{bnd[0]:.4f} ms ({bnd[1]})")
-        report[name]["batch"] = {
+        report[name][key] = {
             "frames": nb, "keypoints": nb * n_real, "max_abs_err": err,
             "ms": ms, "plain_ms": pms, "bound_ms": float(bnd[0]),
             "bound_by": bnd[1]}
@@ -1204,6 +1311,10 @@ def phase_fused_hist_batch(gauss, kp, rng, report) -> None:
           f"K3-desc at B={nb}: a slot with valid false is not zero")
     run("K3-desc", descriptor_hist, descriptor_hist_plain, dargs, valid, 29,
         4 * 360, DESC_OPS_PER_SAMPLE, rd, prm.radius, valid)
+    bargs = dargs[:-1] + (dataclasses.replace(cfg, descr_rc_bf16=True),)
+    run("K3-desc", descriptor_hist, descriptor_hist_plain, bargs, valid, 29,
+        4 * 360, DESC_BF16_OPS_PER_SAMPLE, rd, prm.radius, valid,
+        key="batch_bf16")
 
 
 def phase_cpu_vs_card():
@@ -1306,6 +1417,7 @@ def phase_main_path(scene_np, obj_np, true_corners, report) -> float:
           f"corner_err_px={cerr!r} out_cap_saturated(scene, object)={sat}")
     check(bool(det.found), "object not found at 1080p")
     check(cerr < 2.0, f"corners {cerr} px from the truth")
+    phase_main_path_bf16(scene, obj, det, true_corners)
 
     ms = _median_wall_ms(lambda: detect_object(scene, obj, cfg))
     f1 = torch.roll(scene, 37, dims=1)
@@ -1323,11 +1435,60 @@ def phase_main_path(scene_np, obj_np, true_corners, report) -> float:
     return 2000.0 / pair_ms
 
 
+def phase_main_path_bf16(scene, obj, det, true_corners) -> None:
+    """Phase 4 under sift_tpu's default descriptor arm (descr_rc_bf16):
+    the keypoints equal the f32 run's, 99 % of the descriptor rows move
+    by at most BF16_DESC_L1 from it and every row by at most
+    BF16_DESC_L1_MAX, and the object is still found within 2 px."""
+    import dataclasses
+
+    import torch
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.pipeline import detect_object
+
+    bcfg = dataclasses.replace(cfg, descr_rc_bf16=True)
+    det_b, launches = counted(lambda: detect_object(scene, obj, bcfg))
+    check(launches["K3-desc"] > 0, "the bf16 arm did not launch K3-desc")
+    l1s = []
+    for which in ("scene", "object"):
+        kp, kp_b = getattr(det, f"{which}_kp"), getattr(det_b, f"{which}_kp")
+        for f in ("x", "y", "size", "angle", "response", "octave", "layer",
+                  "r", "c", "valid"):
+            check(torch.equal(getattr(kp, f), getattr(kp_b, f)),
+                  f"bf16 arm: {which} keypoint field {f} differs from the "
+                  f"f32 run's")
+        d, d_b = getattr(det, f"{which}_desc"), getattr(det_b, f"{which}_desc")
+        l1 = (d - d_b).abs().sum(dim=1)
+        check(bool((l1[kp.valid] > 0).any()),
+              f"bf16 arm: {which} descriptors equal the f32 arm's")
+        check(bool((l1[~kp.valid] == 0).all()),
+              f"bf16 arm: an invalid {which} row is not zero")
+        l1s.append(l1[kp.valid].cpu().numpy())
+    l1 = np.concatenate(l1s)
+    worst, p99 = float(l1.max()), float(np.percentile(l1, 99))
+    check(p99 <= BF16_DESC_L1 and worst <= BF16_DESC_L1_MAX,
+          f"bf16 arm: descriptor rows moved {p99} L1 (99th percentile) and "
+          f"{worst} (max) from the f32 run's")
+    cerr = float(np.abs(det_b.corners.cpu().numpy() - true_corners).max())
+    print(f"phase 4 main path, bf16 descriptor arm: keypoints equal the "
+          f"f32 run's; descriptor rows against it, L1: max {worst!r}, "
+          f"99th percentile {p99!r}, median {float(np.median(l1))!r}, "
+          f"{int((l1 > BF16_DESC_L1).sum())} of {len(l1)} rows above "
+          f"{BF16_DESC_L1}; "
+          f"good={int(det_b.matches.good.sum())} "
+          f"inliers={int(det_b.n_inliers)} found={bool(det_b.found)} "
+          f"corner_err_px={cerr!r}")
+    check(bool(det_b.found), "bf16 arm: object not found at 1080p")
+    check(cerr < 2.0, f"bf16 arm: corners {cerr} px from the truth")
+
+
 def phase_batch(scene_np, report, pair_fps: float) -> None:
     """Phase 5: the throughput path, detect_and_compute_batch on BATCH
-    1080p frames and the BATCH - 1 consecutive-frame matches (bench.py's
-    batch step, bench.py:511-519), with launch counts; each row against
-    detect_and_compute on its frame; frames/s and peak memory."""
+    1080p frames and the BATCH - 1 consecutive-frame matches in one
+    batched match_ratio (bench.py's batch step, bench.py:511-519, whose
+    vmap puts the pairs on one K4 launch), with launch counts; each row
+    against detect_and_compute on its frame, each pair against
+    match_ratio on it; frames/s and peak memory."""
     import torch
     from sift_tpu_torch import sift
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
@@ -1337,13 +1498,14 @@ def phase_batch(scene_np, report, pair_fps: float) -> None:
 
     def batch_step():
         kp, d = sift.detect_and_compute_batch(frames, cfg)
-        ms = [match_mod.match_ratio(d[b], d[b - 1], q_valid=kp.valid[b],
-                                    t_valid=kp.valid[b - 1],
-                                    ratio=cfg.match_ratio)
-              for b in range(1, BATCH)]
+        ms = match_mod.match_ratio(d[1:], d[:-1], q_valid=kp.valid[1:],
+                                   t_valid=kp.valid[:-1],
+                                   ratio=cfg.match_ratio)
         return kp, d, ms
 
     (kp, d, ms), launches = counted(batch_step)
+    check(launches["K4"] == 1, f"batch step: K4 launched {launches['K4']} "
+                               f"times for its {BATCH - 1} pairs, not once")
     for k in ("K1-batch", "K2-batch"):
         report[k]["launches"] = launches[k]
     check(all(launches[k] > 0 for k in ("K1-batch", "K2-compact",
@@ -1371,8 +1533,15 @@ def phase_batch(scene_np, report, pair_fps: float) -> None:
         bool(torch.isfinite(getattr(kp, f)).all())
         for f in ("x", "y", "size", "angle", "response")),
         "non-finite batch output")
-    n_good = [int(m.good.sum()) for m in ms]
+    n_good = ms.good.sum(dim=1).tolist()
     check(min(n_good) > 20, f"too few consecutive-frame matches: {n_good}")
+    for b in range(1, BATCH):
+        want = match_mod.match_ratio(d[b], d[b - 1], q_valid=kp.valid[b],
+                                     t_valid=kp.valid[b - 1],
+                                     ratio=cfg.match_ratio)
+        check(all(torch.equal(x[b - 1], y) for x, y in zip(ms, want)),
+              f"batch step: pair {b} of the batched match differs from "
+              f"match_ratio on it")
 
     # every row equals detect_and_compute on its frame: valid and integer
     # fields exactly, float fields within 1e-4 and descriptors within 1e-3
@@ -1399,7 +1568,8 @@ def phase_batch(scene_np, report, pair_fps: float) -> None:
           f"{ {k: launches[k] for k in KERNELS} } keypoints per "
           f"frame={counts} good matches={n_good} "
           f"rows vs single frames: max field diff={fmax!r} max descriptor "
-          f"diff={dmax!r}")
+          f"diff={dmax!r}; the {BATCH - 1} matches in one K4 launch, each "
+          f"pair's Matches equal to match_ratio on it")
     del kp, d, ms
 
     torch.cuda.synchronize()
@@ -1407,7 +1577,8 @@ def phase_batch(scene_np, report, pair_fps: float) -> None:
     step_ms = _median_wall_ms(batch_step)
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 5 timing: batch step (detect_and_compute_batch B={BATCH} "
-          f"+ {BATCH - 1} matches) {step_ms:.3f} ms (median of 10) = "
+          f"+ {BATCH - 1} matches in one K4 launch) {step_ms:.3f} ms "
+          f"(median of 10) = "
           f"{BATCH * 1000.0 / step_ms:.3f} frames/s, pair step "
           f"{pair_fps:.3f} frames/s; peak device memory "
           f"{peak / 2**30:.3f} GiB")

@@ -52,13 +52,15 @@ _SIGNATURES = {
     "sift_ori_hist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P),
     # src, layer, row, col, cos_t, sin_t, radius, ori, valid, out,
-    # N, B (frames), L, Hp, Wp, rd, row_lo, row_hi, stream
+    # N, B (frames), L, Hp, Wp, rd, row_lo, row_hi, rc_bf16 (the bf16
+    # arm), stream
     "sift_descr_hist": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # query, train, N, M, D, P, span (P train splits of span rows),
-    # part_d1, part_d2, part_idx ((P, N) scratch), idx, d1, d2, stream
-    "sift_knn2_l1": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                     _P),
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # query, train, G (pairs), N, M, D, P, span (P train splits of span
+    # rows), part_d1, part_d2, part_idx ((P, G, N) scratch), idx, d1, d2,
+    # stream
+    "sift_knn2_l1": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                     _P, _P),
 }
 
 

@@ -6,8 +6,11 @@ copy rather than an import: importing sift_tpu pulls in JAX.
 
 The port carries one formulation per stage, so the JAX package's
 implementation-choice fields (ori_hist_impl, ori/descr_gather_impl,
-descr_layout, frames_per_chip_mode) are absent, and descriptors are
-always exact float32 (sift_tpu's descr_rc_bf16=False).
+descr_layout, frames_per_chip_mode) are absent. descr_rc_bf16 is
+carried: it changes the descriptors, not only their layout. Its default
+differs from sift_tpu's: the port's DEFAULT_CONFIG computes exact
+float32 descriptors, and from_jax_config keeps whatever the JAX config
+says (True in sift_tpu's DEFAULT_CONFIG).
 
 Reference quirks reproduced (they affect match parity):
   * n_octave_layers = 2 (src/sift.cpp:4)
@@ -31,7 +34,7 @@ from typing import Any, Dict, Tuple
 # sift_tpu.config.SIFTConfig fields that choose between implementations
 # of one stage; the port has a single implementation of each
 _JAX_ONLY_FIELDS = ("ori_hist_impl", "ori_gather_impl", "descr_gather_impl",
-                    "descr_layout", "frames_per_chip_mode", "descr_rc_bf16")
+                    "descr_layout", "frames_per_chip_mode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +67,13 @@ class SIFTConfig:
     max_ori_peaks: int = 4
     max_keypoints: int = 4096
     match_ratio: float = 0.86
+    # sift_tpu's bf16 descriptor arm (sift_tpu/ops/descriptor.py:139-165):
+    # each sample's row x column trilinear weight and its
+    # magnitude-weighted orientation weight are rounded to bfloat16
+    # (round to nearest even) before their product, which is then summed
+    # in float32; ~1e-2 L1 from the exact arm. False (the port's default)
+    # keeps every weight in float32.
+    descr_rc_bf16: bool = False
 
     @property
     def n_scales(self) -> int:
@@ -121,13 +131,9 @@ DEFAULT_CONFIG = SIFTConfig()
 def from_jax_config(d: Dict[str, Any]) -> SIFTConfig:
     """Port config from dataclasses.asdict(sift_tpu.config.SIFTConfig).
 
-    Drops the JAX package's implementation-choice fields. Raises on
-    descr_rc_bf16=True: the port computes descriptors in exact f32
-    only, so it cannot reproduce the bf16 arm.
+    Drops the JAX package's implementation-choice fields and carries the
+    rest, descr_rc_bf16 included.
     """
-    if d.get("descr_rc_bf16", False):
-        raise ValueError("descr_rc_bf16=True has no counterpart in the "
-                         "port (descriptors are exact float32)")
     kw = {k: v for k, v in d.items() if k not in _JAX_ONLY_FIELDS}
     for k in ("detect_caps", "out_caps"):
         if k in kw:

@@ -47,6 +47,17 @@
 // lower bins give distinct addresses); the 8 warp histograms are summed
 // in warp order. No float atomics. The result differs from the plain
 // version's bmm only by that order.
+//
+// The bf16 arm (rc_bf16, sift_tpu's descr_rc_bf16=True,
+// sift_tpu/ops/descriptor.py:139-165): JAX casts the two einsum operands
+// to bfloat16, the row x column weight rc = wr wc and the
+// magnitude-weighted orientation weight ow = wo mag, and sums their
+// products in float32. Here each corner rounds the same two factors
+// (round to nearest even) before their product; the product of two
+// bfloat16 values is exact in float32, so the sums keep the order
+// above. A template parameter, so the f32 arm's inner loop is unchanged.
+
+#include <cuda_bf16.h>
 
 #include "hist_common.cuh"
 
@@ -64,19 +75,31 @@ constexpr float kBinShift = kD / 2 - 0.5f;      // 1.5
 constexpr float kWgtScale = -1.f / (kD * kD * 0.5f);   // -0.125
 constexpr float kObinScale = static_cast<float>(kN / 360.0);
 
+// x rounded to bfloat16 (round to nearest even) and back
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // The 8 trilinear weights of one sample, corner k = 4 dr + 2 dc + do:
 // ((1 - fr | fr) * (1 - fc | fc)) * ((1 - fo | fo) * mag), the
 // product of the plain version's rw x cw one-hot and its
-// magnitude-weighted orientation one-hot.
+// magnitude-weighted orientation one-hot; under kBf16 each of the two
+// factors is rounded to bfloat16 first.
+template <bool kBf16>
 __device__ __forceinline__ void corner_weights(float fr, float fc, float fo,
                                                float mag, float (&v)[8]) {
   const float wr[2] = {__fsub_rn(1.f, fr), fr};
   const float wc[2] = {__fsub_rn(1.f, fc), fc};
-  const float wo[2] = {__fmul_rn(__fsub_rn(1.f, fo), mag),
-                       __fmul_rn(fo, mag)};
+  float wo[2] = {__fmul_rn(__fsub_rn(1.f, fo), mag), __fmul_rn(fo, mag)};
+  if (kBf16) {
+    wo[0] = round_bf16(wo[0]);
+    wo[1] = round_bf16(wo[1]);
+  }
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    v[k] = __fmul_rn(__fmul_rn(wr[k >> 2], wc[(k >> 1) & 1]), wo[k & 1]);
+    float rc = __fmul_rn(wr[k >> 2], wc[(k >> 1) & 1]);
+    if (kBf16) rc = round_bf16(rc);
+    v[k] = __fmul_rn(rc, wo[k & 1]);
   }
 }
 
@@ -84,13 +107,14 @@ __device__ __forceinline__ void corner_weights(float fr, float fc, float fo,
 // the lower bin; lanes with key < 0 add nothing). The leader of each
 // key sums its group's weights in lane order; the 8 corners are stored
 // in 8 passes, so one pass never has two lanes on one address.
+template <bool kBf16>
 __device__ __forceinline__ void warp_add_trilinear(float* hist, int key,
                                                    float fr, float fc,
                                                    float fo, float mag,
                                                    int lane) {
   Group g = group_of(key, lane);
   float acc[8];
-  corner_weights(fr, fc, fo, mag, acc);
+  corner_weights<kBf16>(fr, fc, fo, mag, acc);
   while (__any_sync(kFullMask, g.rest != 0)) {
     const int src = g.rest ? __ffs(g.rest) - 1 : lane;
     const float tr = __shfl_sync(kFullMask, fr, src);
@@ -99,7 +123,7 @@ __device__ __forceinline__ void warp_add_trilinear(float* hist, int key,
     const float tm = __shfl_sync(kFullMask, mag, src);
     if (g.rest) {
       float v[8];
-      corner_weights(tr, tc, to, tm, v);
+      corner_weights<kBf16>(tr, tc, to, tm, v);
 #pragma unroll
       for (int k = 0; k < 8; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
       g.rest &= g.rest - 1;
@@ -116,6 +140,7 @@ __device__ __forceinline__ void warp_add_trilinear(float* hist, int key,
   }
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 descr_hist_kernel(const float* __restrict__ src,
                   const int* __restrict__ layer, const int* __restrict__ row,
@@ -189,7 +214,7 @@ descr_hist_kernel(const float* __restrict__ src,
               + (static_cast<int>(c0) + 1) * (kN + 2) + oi;
       }
     }
-    warp_add_trilinear(hist, key, fr, fc, fo, mag, lane);
+    warp_add_trilinear<kBf16>(hist, key, fr, fc, fo, mag, lane);
   }
   __syncthreads();
 
@@ -200,6 +225,27 @@ descr_hist_kernel(const float* __restrict__ src,
   }
 }
 
+template <bool kBf16>
+cudaError_t launch(const float* src, const int* layer, const int* row,
+                   const int* col, const float* cos_t, const float* sin_t,
+                   const int* radius, const float* ori,
+                   const unsigned char* valid, float* out, int N, int B,
+                   int L, int Hp, int Wp, int rd, int w, int row_lo,
+                   int row_hi, cudaStream_t stream) {
+  const int p = 2 * rd + 3;
+  const size_t smem = sizeof(float) * ((size_t)p * p + kWarps * kBins);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        descr_hist_kernel<kBf16>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  descr_hist_kernel<kBf16><<<N, kThreads, smem, stream>>>(
+      src, layer, row, col, cos_t, sin_t, radius, ori, valid, out, N / B,
+      L / B, Hp, Wp, rd, w, row_lo, row_hi);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // src (L, Hp, Wp) padded by rd + 1 around an (h, w) image: B frames of
@@ -208,32 +254,28 @@ descr_hist_kernel(const float* __restrict__ src,
 // sin_t, ori (N,) float32; valid (N,) bool -> out (N, 6, 6, 10).
 // Keypoints [b N / B, (b + 1) N / B) belong to frame b. A sample counts
 // where its row lies strictly inside (row_lo, row_hi - 1), as in
-// sift_ori_hist: (0, h) for a whole image.
+// sift_ori_hist: (0, h) for a whole image. rc_bf16 != 0 takes the bf16
+// arm.
 extern "C" int sift_descr_hist(const float* src, const int* layer,
                                const int* row, const int* col,
                                const float* cos_t, const float* sin_t,
                                const int* radius, const float* ori,
                                const unsigned char* valid, float* out, int N,
                                int B, int L, int Hp, int Wp, int rd,
-                               int row_lo, int row_hi, void* stream_ptr) {
+                               int row_lo, int row_hi, int rc_bf16,
+                               void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (N == 0) return cudaSuccess;
-  const int p = 2 * rd + 3;
   const int h = Hp - 2 * (rd + 1), w = Wp - 2 * (rd + 1);
   if (B < 1 || N % B != 0 || L % B != 0 || rd < 0 || L < B || h < 1 ||
       w < 1) {
     return cudaErrorInvalidValue;
   }
-  const size_t smem = sizeof(float) * ((size_t)p * p + kWarps * kBins);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        descr_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  descr_hist_kernel<<<N, kThreads, smem, stream>>>(src, layer, row, col, cos_t,
-                                                   sin_t, radius, ori, valid,
-                                                   out, N / B, L / B, Hp, Wp,
-                                                   rd, w, row_lo, row_hi);
-  return cudaGetLastError();
+  return rc_bf16
+             ? launch<true>(src, layer, row, col, cos_t, sin_t, radius, ori,
+                            valid, out, N, B, L, Hp, Wp, rd, w, row_lo,
+                            row_hi, stream)
+             : launch<false>(src, layer, row, col, cos_t, sin_t, radius, ori,
+                             valid, out, N, B, L, Hp, Wp, rd, w, row_lo,
+                             row_hi, stream);
 }

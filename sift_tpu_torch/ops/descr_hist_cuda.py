@@ -2,8 +2,11 @@
 gather fused with the trilinear histogram that consumes it.
 
 Counterpart of sift_tpu/ops/ori_gather_pallas.py (gather_patches) plus
-the soft one-hot contraction of sift_tpu/ops/descriptor.py (its
-exact-f32 einsum). `descriptor_hist` launches the CUDA kernel
+the soft one-hot contraction of sift_tpu/ops/descriptor.py: its
+exact-f32 einsum, or, under cfg.descr_rc_bf16, its bf16 einsum, whose
+two operands (the row x column weights and the magnitude-weighted
+orientation weights) are rounded to bfloat16 and whose products are
+summed in float32. `descriptor_hist` launches the CUDA kernel
 (csrc/descr_hist.cu) for a CUDA tensor, once for all keypoints, and runs
 `descriptor_hist_plain` for a CPU tensor. Both return the
 (N, d+2, d+2, n+2) histogram of calcSIFTDescriptor (src/sift.cpp:579-753)
@@ -22,7 +25,9 @@ in float32,
 
 over chunks of 64 valid keypoints of one frame, so the RC intermediate
 stays at (64, 6889, 36) floats (~63 MB) and a row's sums never depend on
-other frames.
+other frames. Under descr_rc_bf16, RC and OM are rounded to bfloat16
+(round to nearest even) and back before the float32 product, as the
+kernel rounds each corner's two factors.
 """
 
 from __future__ import annotations
@@ -118,6 +123,9 @@ def _hist_chunk(patch: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
     ow = _soft_onehot(o0i, fo, n + 2, 0) * mag[..., None]
     rc = (rw[..., :, None] * cw[..., None, :]).reshape(
         b, -1, (d + 2) * (d + 2))
+    if cfg.descr_rc_bf16:
+        rc = rc.to(torch.bfloat16).to(torch.float32)
+        ow = ow.to(torch.bfloat16).to(torch.float32)
     return torch.bmm(rc.transpose(1, 2), ow).reshape(b, d + 2, d + 2, n + 2)
 
 
@@ -209,7 +217,7 @@ def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,
             cos_t.data_ptr(), sin_t.data_ptr(), radius.data_ptr(),
             ori.data_ptr(), valid.data_ptr(), out.data_ptr(), k, nb, nlay,
             hp, wp, cfg.descr_patch_radius, row_lo, row_hi,
-            torch.cuda.current_stream().cuda_stream)
+            int(cfg.descr_rc_bf16), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sift_descr_hist")
     descriptor_hist.launches += 1
     return out.reshape(*shape, d + 2, d + 2, n + 2)

@@ -1,7 +1,7 @@
 """128-d SIFT descriptor extraction (reference C10).
 
 Twin of calcSIFTDescriptor/calDescriptor (src/sift.cpp:579-753) and of
-sift_tpu/ops/descriptor.py with descr_rc_bf16=False: a rotated 4x4
+sift_tpu/ops/descriptor.py (either arm of cfg.descr_rc_bf16): a rotated 4x4
 spatial grid x 8 orientation bins over a radius
 cvRound(3*scl*sqrt(2)*2.5) window, trilinear histogram, then the
 reference's normalization chain -- L2-clip at 0.2*||v||, x512, uchar

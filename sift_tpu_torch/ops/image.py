@@ -9,6 +9,7 @@ value and so every threshold decision downstream.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 # OpenCV fixed-point luma weights, yuv_shift = 14
 _R2Y, _G2Y, _B2Y = 4899, 9617, 1868
@@ -28,6 +29,26 @@ def bgr_to_gray_swapped_u8(img_bgr_u8: torch.Tensor) -> torch.Tensor:
 def rgb_to_gray_swapped_u8(img_rgb_u8: torch.Tensor) -> torch.Tensor:
     """Same conversion for RGB-ordered input (e.g. loaded via PIL)."""
     return bgr_to_gray_swapped_u8(img_rgb_u8.flip(-1))
+
+
+def resize_bilinear_u8(img: torch.Tensor, out_h: int, out_w: int
+                       ) -> torch.Tensor:
+    """Bilinear resize with half-pixel centers (cv::INTER_LINEAR model,
+    src/main.cpp:83) of an (H, W) or (H, W, C) image on its own device;
+    twin of sift_tpu/ops/image.py:resize_bilinear_u8, which calls
+    jax.image.resize(method="linear"). That resize antialiases when it
+    shrinks: the triangle kernel widens by the shrink factor and the
+    weights inside the image are renormalized, which is
+    F.interpolate's antialias=True filter; enlarging it is plain
+    bilinear. Computed in float32, rounded half to even and clipped to
+    0..255 in the input's dtype."""
+    x = img.to(torch.float32)
+    chans = x.dim() == 3
+    x = x.permute(2, 0, 1)[None] if chans else x[None, None]
+    out = F.interpolate(x, size=(out_h, out_w), mode="bilinear",
+                        align_corners=False, antialias=True)[0]
+    out = out.permute(1, 2, 0) if chans else out[0]
+    return torch.clamp(torch.round(out), 0, 255).to(img.dtype)
 
 
 def downsample_nearest_2x(img: torch.Tensor) -> torch.Tensor:

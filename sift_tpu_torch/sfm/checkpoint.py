@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from sift_tpu_torch.sfm.ba import BAProblem
+from sift_tpu_torch.sfm.incremental import resolve_device
 
 _FIELDS = ("cameras", "points", "cam_idx", "pt_idx", "uv", "mask",
            "fixed_cams")
@@ -47,9 +48,10 @@ def save_ba(path: str, prob: BAProblem, step: int = 0) -> str:
     return written
 
 
-def load_ba(path: str, device="cpu") -> tuple[BAProblem, int]:
+def load_ba(path: str, device=None) -> tuple[BAProblem, int]:
     """Load a snapshot written by save_ba (either package's npz) onto
-    `device`; returns (problem, step)."""
+    `device` (CUDA unless given, as the rest of the SfM path); returns
+    (problem, step)."""
     if path.endswith(".orbax") or os.path.isdir(path):
         raise ValueError(f"{path} is an orbax checkpoint; sift_tpu_torch "
                          f"reads npz checkpoints only (save with orbax "
@@ -60,7 +62,8 @@ def load_ba(path: str, device="cpu") -> tuple[BAProblem, int]:
     tensors = {f: torch.from_numpy(np.asarray(arrays[f])) for f in _FIELDS}
     for f in _NPZ_DTYPES:
         tensors[f] = tensors[f].long()
-    return BAProblem(**{f: t.to(device) for f, t in tensors.items()}), step
+    dev = resolve_device(device)
+    return BAProblem(**{f: t.to(dev) for f, t in tensors.items()}), step
 
 
 def latest(dirpath: str, prefix: str = "ba_") -> Optional[str]:

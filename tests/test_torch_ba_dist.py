@@ -247,7 +247,7 @@ def test_checkpoint_interchange(arrays, tmp_path):
     jpath = str(tmp_path / "ba_from_jax.npz")
     np.savez(jpath, **{f: np.asarray(ba_a[f]) for f in jba.BAProblem._fields},
              step=np.asarray(9))
-    got, step = tck.load_ba(jpath)
+    got, step = tck.load_ba(jpath, device="cpu")
     assert step == 9 and got.cam_idx.dtype == torch.int64
     for f in jba.BAProblem._fields:
         np.testing.assert_array_equal(getattr(got, f).numpy(), ba_a[f])

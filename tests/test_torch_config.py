@@ -17,9 +17,12 @@ from sift_tpu_torch.config import (SIFTConfig, DEFAULT_CONFIG as TCFG,
 from sift_tpu_torch.ops.conv import stack_kernels
 
 # implementation-choice fields the port does not carry (one formulation
-# per stage; descriptors always exact f32)
+# per stage)
 _DROPPED = {"ori_hist_impl", "ori_gather_impl", "descr_gather_impl",
-            "descr_layout", "frames_per_chip_mode", "descr_rc_bf16"}
+            "descr_layout", "frames_per_chip_mode"}
+# fields whose default differs on purpose: the port's default descriptors
+# are exact f32, sift_tpu's the bf16 arm
+_OWN_DEFAULT = {"descr_rc_bf16": (False, True)}
 
 
 def test_constants_equal_jax_defaults():
@@ -28,7 +31,10 @@ def test_constants_equal_jax_defaults():
     assert set(jd) - set(td) == _DROPPED
     assert set(td) <= set(jd)
     for k, v in td.items():
-        assert v == jd[k], k
+        if k in _OWN_DEFAULT:
+            assert (v, jd[k]) == _OWN_DEFAULT[k], k
+        else:
+            assert v == jd[k], k
 
 
 @pytest.mark.parametrize("prop", ["n_scales", "n_dog", "descr_size",
@@ -60,7 +66,7 @@ def test_from_jax_config_round_trips():
                      out_caps=(256, 128, 64, 64, 64), match_ratio=0.8)
     tcfg = from_jax_config(dataclasses.asdict(jcfg))
     assert isinstance(tcfg, SIFTConfig)
-    back = JaxConfig(**dataclasses.asdict(tcfg), descr_rc_bf16=False,
+    back = JaxConfig(**dataclasses.asdict(tcfg),
                      ori_hist_impl=jcfg.ori_hist_impl,
                      ori_gather_impl=jcfg.ori_gather_impl,
                      descr_gather_impl=jcfg.descr_gather_impl,
@@ -71,6 +77,14 @@ def test_from_jax_config_round_trips():
         JaxConfig(descr_rc_bf16=False))) == TCFG
 
 
-def test_from_jax_config_rejects_bf16():
-    with pytest.raises(ValueError, match="descr_rc_bf16"):
-        from_jax_config(dataclasses.asdict(JCFG))
+@pytest.mark.parametrize("arm", [True, False])
+def test_from_jax_config_carries_bf16(arm):
+    # the descriptor arm is carried, not refused: sift_tpu's
+    # DEFAULT_CONFIG (arm on) gives the port's defaults with the arm on
+    jcfg = dataclasses.replace(JCFG, descr_rc_bf16=arm)
+    tcfg = from_jax_config(dataclasses.asdict(jcfg))
+    assert tcfg.descr_rc_bf16 is arm
+    assert tcfg == dataclasses.replace(TCFG, descr_rc_bf16=arm)
+    back = JaxConfig(**dataclasses.asdict(tcfg))
+    assert back.descr_rc_bf16 is arm
+    assert from_jax_config(dataclasses.asdict(back)) == tcfg

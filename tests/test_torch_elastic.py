@@ -73,7 +73,7 @@ def _check_final(final, restarts, problem, jax_reference):
     # runs differ in float32 rounding past CG convergence, ROADMAP Queue
     # 3, and in the sharded sums of the first chunk)
     prob0, _, _ = problem
-    out, step = ck.load_ba(final)
+    out, step = ck.load_ba(final, device="cpu")
     assert step == TOTAL
     rmse = float(reproj_rmse(out))
     assert rmse < 0.5 * float(reproj_rmse(prob0))

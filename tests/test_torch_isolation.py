@@ -195,10 +195,12 @@ def test_parallel_backend_is_the_callers():
 
 def test_parallel_has_no_default_backend_or_device():
     # a default would choose for a caller who names neither: no function
-    # of parallel/ gives `backend` a default, or `device` a device name
-    # (make_mesh's device=None follows the world's backend)
+    # of parallel/ or of sfm/checkpoint.py gives `backend` a default, or
+    # `device` a device name (make_mesh's device=None follows the world's
+    # backend; load_ba's device=None is CUDA, as the rest of the SfM
+    # path resolves it)
     checked = set()
-    for src in PARALLEL:
+    for src in PARALLEL + [PKG / "sfm" / "checkpoint.py"]:
         for node in ast.walk(ast.parse(src.read_text())):
             if not isinstance(node, ast.FunctionDef):
                 continue
@@ -214,5 +216,5 @@ def test_parallel_has_no_default_backend_or_device():
                             and isinstance(default.value, str)), \
                     (src.name, node.name)
             checked |= {node.name} & {"run_spmd", "init_process",
-                                      "supervise_ba"}
-    assert checked == {"run_spmd", "init_process", "supervise_ba"}
+                                      "supervise_ba", "load_ba"}
+    assert checked == {"run_spmd", "init_process", "supervise_ba", "load_ba"}

@@ -14,8 +14,10 @@ clocks:
   - bench.py's pair step (two detect_and_compute, one match_ratio),
     median of 10, its frames/s and its peak device memory;
   - the batch step (detect_and_compute_batch on chip_smoke.py's 8
-    frames, 7 matches), median of 5, its frames/s and its peak device
-    memory;
+    frames, then the 7 consecutive matches: one batched match_ratio, a
+    single K4 launch, in a tree whose K4 takes a pair count; one call a
+    pair in an older tree), median of 5, its frames/s and its peak
+    device memory;
   - detect_and_compute on the scene and, within it, the octave-0
     descriptor stage (descriptors_octave), medians of 10;
 and, under torch.profiler, one pair step and one batch step: device
@@ -136,8 +138,17 @@ def worker(tree: pathlib.Path) -> dict:
         return match_mod.match_ratio(d1, d0, q_valid=kp1.valid,
                                      t_valid=kp0.valid, ratio=cfg.match_ratio)
 
+    # a K4 that takes a pair count (its C entry has the extra int)
+    # matches the batch step's pairs in one call; an older tree's, one
+    # call a pair
+    pair_axis = len(_build._SIGNATURES["sift_knn2_l1"]) == 15
+
     def batch_step():
         kp, d = sift.detect_and_compute_batch(frames, cfg)
+        if pair_axis:
+            return match_mod.match_ratio(d[1:], d[:-1], q_valid=kp.valid[1:],
+                                         t_valid=kp.valid[:-1],
+                                         ratio=cfg.match_ratio)
         return [match_mod.match_ratio(d[b], d[b - 1], q_valid=kp.valid[b],
                                       t_valid=kp.valid[b - 1],
                                       ratio=cfg.match_ratio)
@@ -157,6 +168,7 @@ def worker(tree: pathlib.Path) -> dict:
                      10)
     return {
         "tree": str(tree),
+        "batched_matches": pair_axis,
         "pair_step_ms": pair,
         "pair_fps": 2000.0 / statistics.median(pair),
         "batch_step_ms": batch,
@@ -219,7 +231,8 @@ def main() -> int:
     print(card)
     trees = [str(pathlib.Path(t).resolve()) for t in args.trees]
     runs = run_in_turns(__file__, trees, args.rounds, (
-        "tree", "pair_fps", "batch_fps", "detect_and_compute_ms",
+        "tree", "batched_matches", "pair_fps", "batch_fps",
+        "detect_and_compute_ms",
         "octave0_descriptors_ms", "batch_peak_gib"))
     if runs is None:
         return 1
