@@ -116,6 +116,21 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      (1080 + 2 x 64 rows x 3840, both bands), the boxed compact scan and
      select under torch.equal and the row-windowed K3-ori and K3-desc at
      rtol 1e-5 against their plain versions.
+  8. the port on the card against the NumPy oracle of the reference
+     algorithm on the host (sift_tpu_torch/oracle/cpu_sift.py), under
+     tests/test_detect.py's gates (oracle keypoints recalled >= 0.97 by
+     position within 0.1 px, size within 1 % and angle within 1 degree;
+     precision >= 0.97; descriptor L1 of the matched rows, median < 0.05
+     and 90th percentile < 0.2) and tests/test_match.py's (match recall
+     >= 0.9, both endpoints within 0.5 px): 8a tests/conftest.py's
+     small_image (160x200, copied here) at DEFAULT_CONFIG; 8b its 480x640
+     tiling with out_caps raised to ORACLE_OUT_CAPS, no octave saturated
+     (K3-ori and K3-desc at N = 4096 in octave 0); 8c match_ratio of a
+     288x384 crop of 8b's frame against the frame, against the oracle's
+     match_l1_ratio. Each launches K1 once for the base blur and once
+     per octave, the compact scan, the select, K3-ori and K3-desc once
+     per usable octave, K4 once in 8c, and nothing else; each line
+     prints the oracle's host seconds and the card's milliseconds.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}. Any
@@ -2234,6 +2249,234 @@ def phase_multidevice(scene_np, img4k_np) -> dict:
     return launches1
 
 
+# ------------------------------------------------ phase 8: the NumPy oracle
+
+# 8b/8c: out_caps raised until no octave of the 480x640 frames saturates,
+# so that the port's keypoint set is uncapped, as the reference's is (the
+# default out_caps[0] = 1024 truncates octave 0's 1,299 keypoints)
+ORACLE_OUT_CAPS = (4096, 1024, 512, 256, 128)
+ORACLE_HW = (480, 640)
+# 8c's object: tests/test_match.py's crop of small_image, [24:120,
+# 40:168], scaled by 3 onto the 480x640 frame
+ORACLE_CROP = (slice(72, 360), slice(120, 504))
+# tests/test_detect.py's gates (keypoints matched by position within
+# 0.1 px, size within 1 %, angle within 1 degree) and tests/
+# test_match.py's (both endpoints of a good match within 0.5 px)
+ORACLE_RECALL = 0.97
+ORACLE_PRECISION = 0.97
+ORACLE_L1_MEDIAN = 0.05
+ORACLE_L1_P90 = 0.2
+ORACLE_MATCH_RECALL = 0.9
+
+
+def small_image() -> np.ndarray:
+    """tests/conftest.py:small_image, copied: the deterministic 160x200
+    synthetic frame with blob and corner structure, float32."""
+    from scipy import ndimage
+    rng = np.random.default_rng(42)
+    h, w = 160, 200
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = 110.0 + 35.0 * np.sin(xx / 13.0) * np.cos(yy / 17.0)
+    for k in range(60):
+        cy, cx = rng.uniform(10, h - 10), rng.uniform(10, w - 10)
+        s = rng.uniform(1.2, 7.0)
+        a = rng.uniform(50, 120) * (1 if k % 2 == 0 else -1)
+        img += a * np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))
+    blocks = rng.uniform(-60, 60, (h // 8, w // 8))
+    img += ndimage.zoom(blocks, 8, order=0)[:h, :w]
+    img += rng.normal(0, 3.0, (h, w))
+    return np.clip(img, 0, 255).astype(np.float32)
+
+
+def oracle_frame() -> np.ndarray:
+    """8b's 480x640 frame: small_image tiled 3 x 4 times, cut to size."""
+    h, w = ORACLE_HW
+    return np.ascontiguousarray(np.tile(small_image(), (3, 4))[:h, :w])
+
+
+def _kp_numpy(kp) -> dict:
+    return {f: getattr(kp, f).cpu().numpy()
+            for f in ("x", "y", "size", "angle", "valid")}
+
+
+def oracle_hits(kpts_ref, kp, pos_tol=0.1, size_rtol=0.01,
+                ang_tol=1.0) -> np.ndarray:
+    """tests/test_detect.py's matcher: for each oracle keypoint, the
+    first valid port slot within pos_tol px (|dx| + |dy|), its size
+    within size_rtol and its angle within ang_tol degrees; -1 where
+    there is none."""
+    f = _kp_numpy(kp)
+    hits = np.full(len(kpts_ref), -1)
+    for n, kr in enumerate(kpts_ref):
+        d = np.abs(f["x"] - kr["x"]) + np.abs(f["y"] - kr["y"])
+        da = np.abs(f["angle"] - kr["angle"])
+        da = np.minimum(da, 360 - da)
+        ok = (f["valid"] & (d < pos_tol)
+              & ~(np.abs(f["size"] - kr["size"]) > size_rtol * kr["size"])
+              & ~(da > ang_tol))
+        idx = np.flatnonzero(ok)
+        if len(idx):
+            hits[n] = idx[0]
+    return hits
+
+
+def oracle_gates(kpts_ref, desc_ref, kp, desc) -> dict:
+    """tests/test_detect.py's numbers for one frame: recall of the
+    oracle's keypoints, precision of the port's valid keypoints (each
+    within 0.1 px of an oracle keypoint) and the L1 distance of the
+    matched descriptor rows (median, 90th percentile, max)."""
+    f = _kp_numpy(kp)
+    hits = oracle_hits(kpts_ref, kp)
+    rx = np.array([k["x"] for k in kpts_ref])
+    ry = np.array([k["y"] for k in kpts_ref])
+    px, py = f["x"][f["valid"]], f["y"][f["valid"]]
+    near = sum(len(rx) > 0 and np.min(np.abs(rx - x) + np.abs(ry - y)) < 0.1
+               for x, y in zip(px, py))
+    matched = np.flatnonzero(hits >= 0)
+    l1 = np.array([np.abs(desc_ref[i] - desc[hits[i]]).sum()
+                   for i in matched])
+    return {"oracle": len(kpts_ref), "port": int(f["valid"].sum()),
+            "matched": len(matched), "hits": hits,
+            "recall": float((hits >= 0).mean()) if len(hits) else 0.0,
+            "precision": float(near) / max(len(px), 1),
+            "l1": (float(np.median(l1)), float(np.quantile(l1, 0.9)),
+                   float(l1.max())) if len(l1) else (math.inf,) * 3}
+
+
+def check_oracle_gates(label: str, g: dict) -> None:
+    check(g["oracle"] > 50, f"phase {label}: the oracle found only "
+          f"{g['oracle']} keypoints")
+    check(g["matched"] > 30, f"phase {label}: only {g['matched']} keypoints "
+          f"matched the oracle's")
+    check(g["recall"] >= ORACLE_RECALL,
+          f"phase {label}: recall {g['recall']} < {ORACLE_RECALL}")
+    check(g["precision"] >= ORACLE_PRECISION,
+          f"phase {label}: precision {g['precision']} < {ORACLE_PRECISION}")
+    check(g["l1"][0] < ORACLE_L1_MEDIAN and g["l1"][1] < ORACLE_L1_P90,
+          f"phase {label}: descriptor L1 (median, p90, max) {g['l1']}")
+
+
+def oracle_match_recall(ref, ko_ref, ks_ref, kpo, kps, m) -> float:
+    """tests/test_match.py's end-to-end recall: the share of the oracle's
+    good matches (query the object, train the scene) that the port's
+    good matches reproduce, both endpoints within 0.5 px."""
+    good = np.flatnonzero(m.good.cpu().numpy())
+    ti = m.train_idx.cpu().numpy()[good]
+    ox, oy = kpo.x.cpu().numpy()[good], kpo.y.cpu().numpy()[good]
+    gx, gy = kps.x.cpu().numpy()[ti], kps.y.cpu().numpy()[ti]
+    hits = 0
+    for qi, tj, _ in ref:
+        qr, tr = ko_ref[qi], ks_ref[tj]
+        hits += bool(((np.abs(ox - qr["x"]) < .5) & (np.abs(oy - qr["y"]) < .5)
+                      & (np.abs(gx - tr["x"]) < .5)
+                      & (np.abs(gy - tr["y"]) < .5)).any())
+    return hits / max(len(ref), 1)
+
+
+def check_frame_launches(label: str, launches: dict, shapes, k4: int,
+                         cfg) -> None:
+    """detect_and_compute on frames of these shapes (and k4 matches)
+    launches K1 once for the base blur and once per octave, the compact
+    scan, the select, K3-ori and K3-desc once per usable octave, K4 k4
+    times, and nothing else."""
+    n_oct = sum(usable_octaves(hw) for hw in shapes)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({"K1": len(shapes) * (1 + cfg.n_octaves), "K2-compact": n_oct,
+                 "K2-select": n_oct, "K3-ori": n_oct, "K3-desc": n_oct,
+                 "K4": k4})
+    check(launches == want, f"phase {label}: launches {launches}, not {want}")
+
+
+def fired(launches: dict) -> dict:
+    """{kernel: launches} without the zero counts."""
+    return {k: n for k, n in launches.items() if n}
+
+
+def _gates_line(g: dict) -> str:
+    return (f"oracle_kp={g['oracle']} port_kp={g['port']} "
+            f"recall={g['recall']!r} precision={g['precision']!r} "
+            f"descriptor L1 (median, p90, max)={g['l1']!r}")
+
+
+def phase_oracle(card: str) -> None:
+    """Phase 8: the port on the card against the NumPy oracle of the
+    reference algorithm on the host (sift_tpu_torch/oracle/cpu_sift.py),
+    under tests/test_detect.py's and tests/test_match.py's gates: 8a
+    small_image (160x200) at DEFAULT_CONFIG, 8b its 480x640 tiling with
+    ORACLE_OUT_CAPS and no octave saturated, 8c the ratio-test matches
+    of a 288x384 crop of 8b's frame against the frame. Each with its
+    launches, the oracle's host seconds and the card's milliseconds
+    (median of 10 synchronised calls)."""
+    import dataclasses
+    import torch
+    from sift_tpu_torch import sift
+    from sift_tpu_torch.config import DEFAULT_CONFIG
+    from sift_tpu_torch.ops.match import match_ratio
+    from sift_tpu_torch.oracle import cpu_sift as oracle
+
+    raised = dataclasses.replace(DEFAULT_CONFIG, out_caps=ORACLE_OUT_CAPS)
+    scene_np = oracle_frame()
+    frames = {}
+    for label, img, cfg in (("8a", small_image(), DEFAULT_CONFIG),
+                            ("8b", scene_np, raised)):
+        t0 = time.perf_counter()
+        kpts, desc_ref = oracle.sift_ncl(img, cfg)
+        host_s = time.perf_counter() - t0
+        x = torch.from_numpy(img).cuda()
+        (kp, desc), launches = counted(
+            lambda: sift.detect_and_compute(x, cfg))
+        card_ms = _median_wall_ms(lambda: sift.detect_and_compute(x, cfg))
+        sat = sift.octave_saturation(kp, cfg).cpu().numpy()
+        g = oracle_gates(kpts, desc_ref, kp, desc.cpu().numpy())
+        per_octave = [sum(k["octave"] == o for k in kpts)
+                      for o in range(cfg.n_octaves)]
+        print(f"phase {label} oracle {img.shape[0]}x{img.shape[1]} "
+              f"out_caps={cfg.out_caps}: {_gates_line(g)} oracle per "
+              f"octave {per_octave} octave_saturation "
+              f"{sat.astype(int).tolist()} launches {fired(launches)}; "
+              f"oracle {host_s:.3f} s on the host, "
+              f"detect_and_compute {card_ms:.3f} ms on the card ({card})")
+        check_frame_launches(label, launches, [img.shape], 0, cfg)
+        check_oracle_gates(label, g)
+        check(not sat.any(), f"phase {label}: an octave saturated ({sat}): "
+              f"the comparison is capped")
+        frames[label] = (kpts, desc_ref, kp, desc)
+
+    # 8c: the object is a crop of 8b's frame, the scene 8b's frame
+    ks_ref, ds_ref, kps, ds = frames["8b"]
+    obj_np = np.ascontiguousarray(scene_np[ORACLE_CROP])
+    t0 = time.perf_counter()
+    ko_ref, do_ref = oracle.sift_ncl(obj_np, raised)
+    ref = oracle.match_l1_ratio(do_ref, ds_ref, ratio=0.86)
+    host_s = time.perf_counter() - t0
+    obj = torch.from_numpy(obj_np).cuda()
+
+    def object_and_match():
+        kpo, do = sift.detect_and_compute(obj, raised)
+        return kpo, match_ratio(do, ds, q_valid=kpo.valid,
+                                t_valid=kps.valid, ratio=0.86)
+
+    (kpo, m), launches = counted(object_and_match)
+    card_ms = _median_wall_ms(object_and_match)
+    sat = sift.octave_saturation(kpo, raised).cpu().numpy()
+    recall = oracle_match_recall(ref, ko_ref, ks_ref, kpo, kps, m)
+    print(f"phase 8c oracle matches {obj_np.shape[0]}x{obj_np.shape[1]} "
+          f"crop -> {scene_np.shape[0]}x{scene_np.shape[1]} frame, ratio "
+          f"0.86: oracle good={len(ref)} port good={int(m.good.sum())} "
+          f"match recall={recall!r} object oracle_kp={len(ko_ref)} port_kp="
+          f"{int(kpo.count())} octave_saturation "
+          f"{sat.astype(int).tolist()} launches {fired(launches)}; oracle "
+          f"{host_s:.3f} s on the host (object + match), object detect + "
+          f"match_ratio {card_ms:.3f} ms on the card ({card})")
+    check_frame_launches("8c", launches, [obj_np.shape], 1, raised)
+    check(len(ref) >= 10, f"phase 8c: the oracle has only {len(ref)} good "
+          f"matches")
+    check(not sat.any(), f"phase 8c: an octave of the object saturated "
+          f"({sat})")
+    check(recall >= ORACLE_MATCH_RECALL,
+          f"phase 8c: match recall {recall} < {ORACLE_MATCH_RECALL}")
+
+
 def _median_wall_ms(fn, runs: int = 10) -> float:
     import torch
     fn()
@@ -2281,6 +2524,7 @@ def main() -> int:
     phase_mapping_cpu_vs_card(textures)
     phase_mapping_cli_size(textures)
     phase_multidevice(scene, img4k)
+    phase_oracle(card)
 
     print(json.dumps({"kernels": [report[k] for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -55,7 +55,11 @@ PAIRS = [("scene.jpg", "book.jpg"),
 # >=0.95 keypoint/match recall acceptance gate is measured vs these
 GOLDEN = os.path.join(_ROOT, "tests", "golden", "ref_dump.npz")
 
-# the committed oracle comparison of tools/oracle_repeatability.py
+# the oracle comparisons: the port's own
+# (tools/torch_oracle_repeatability.py) and sift_tpu's committed one
+# (tools/oracle_repeatability.py), whose pipeline column was measured
+# on sift_tpu's pipeline
+ORACLE_REPEAT_TORCH = os.path.join(_ROOT, "ORACLE_REPEAT_TORCH.json")
 ORACLE_REPEAT = os.path.join(_ROOT, "ORACLE_REPEAT.json")
 
 # gates asserted by --gate (sift_tpu/eval.py:51-67)
@@ -290,24 +294,37 @@ def eval_mapping(data_dir: Optional[str], n_frames: int = 16,
     return out
 
 
-def attach_oracle(report: Dict, path: str = ORACLE_REPEAT) -> None:
-    """Attach the committed oracle repeatability comparison (when the
-    file exists), with its path and sha256, and annotate each
-    repeatability row it covers: the quirk-exact NumPy twin of the
-    reference gives the same repeatability row by row, so a low row is
-    the reference algorithm's own scale response."""
+def attach_oracle(report: Dict, path: Optional[str] = None) -> None:
+    """Attach an oracle repeatability comparison (when the file exists),
+    with its path and sha256, and annotate each repeatability row it
+    covers: the quirk-exact NumPy twin of the reference gives the same
+    repeatability row by row, so a low row is the reference algorithm's
+    own scale response.
+
+    Without a path: the port's own file when present, else sift_tpu's.
+    A file names the pipeline it measured ("pipeline"; sift_tpu's file
+    predates the key). Only this port's column is written as
+    pipeline_repeatability_reduced_res; another pipeline's goes under
+    its own name (sift_tpu_repeatability_reduced_res)."""
+    if path is None:
+        path = (ORACLE_REPEAT_TORCH if os.path.exists(ORACLE_REPEAT_TORCH)
+                else ORACLE_REPEAT)
     if not os.path.exists(path):
         return
     with open(path, "rb") as f:
         raw = f.read()
     od = json.loads(raw)
+    pipeline = od.get("pipeline", "sift_tpu")
     report["oracle_repeatability_comparison"] = {
         "path": os.path.relpath(path, _ROOT),
         "sha256": hashlib.sha256(raw).hexdigest(),
+        "pipeline": pipeline,
         "summary": od.get("summary"),
         "note": od.get("note"),
         "rows": od.get("rows"),
     }
+    column = ("pipeline" if pipeline == "sift_tpu_torch"
+              else pipeline) + "_repeatability_reduced_res"
     for row in report["repeatability"]:
         for orow in od.get("rows", []):
             if (orow["image"] == row["image"]
@@ -315,8 +332,7 @@ def attach_oracle(report: Dict, path: str = ORACLE_REPEAT) -> None:
                     and orow["scale"] == row["scale"]):
                 row["oracle_repeatability_reduced_res"] = \
                     orow["oracle_repeatability"]
-                row["pipeline_repeatability_reduced_res"] = \
-                    orow["pipeline_repeatability"]
+                row[column] = orow["pipeline_repeatability"]
 
 
 def summarize(report: Dict) -> Dict:

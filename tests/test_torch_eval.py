@@ -95,6 +95,48 @@ def test_eval_records_the_attached_oracle_file(tmp_path):
         == 0.8
 
 
+def test_eval_names_sift_tpus_column_as_sift_tpus(tmp_path, monkeypatch):
+    # with only sift_tpu's committed ORACLE_REPEAT.json, whose pipeline
+    # column was measured on sift_tpu's pipeline, no row carries that
+    # number under the pipeline's name
+    monkeypatch.setattr(teval, "ORACLE_REPEAT_TORCH",
+                        str(tmp_path / "ORACLE_REPEAT_TORCH.json"))
+    with open(teval.ORACLE_REPEAT) as f:
+        rows = json.load(f)["rows"]
+    report = {"repeatability": [{k: r[k] for k in ("image", "angle",
+                                                   "scale")}
+                                for r in rows]}
+    teval.attach_oracle(report)
+    att = report["oracle_repeatability_comparison"]
+    assert att["pipeline"] == "sift_tpu"
+    assert att["path"] == "ORACLE_REPEAT.json"
+    for row, orow in zip(report["repeatability"], rows):
+        assert not any(k.startswith("pipeline_") for k in row)
+        assert row["sift_tpu_repeatability_reduced_res"] == \
+            orow["pipeline_repeatability"]
+        assert row["oracle_repeatability_reduced_res"] == \
+            orow["oracle_repeatability"]
+
+
+def test_eval_prefers_the_ports_oracle_file(tmp_path, monkeypatch):
+    rows = [{"image": "book.jpg", "angle": 15, "scale": 1.0,
+             "oracle_repeatability": 0.8, "pipeline_repeatability": 0.79}]
+    path = tmp_path / "ORACLE_REPEAT_TORCH.json"
+    path.write_text(json.dumps({"pipeline": "sift_tpu_torch", "summary": {},
+                                "note": "n", "rows": rows}))
+    monkeypatch.setattr(teval, "ORACLE_REPEAT_TORCH", str(path))
+    report = {"repeatability": [{"image": "book.jpg", "angle": 15,
+                                 "scale": 1.0}]}
+    teval.attach_oracle(report)
+    att = report["oracle_repeatability_comparison"]
+    assert att["pipeline"] == "sift_tpu_torch"
+    assert att["sha256"] == hashlib.sha256(path.read_bytes()).hexdigest()
+    assert report["repeatability"][0] == {
+        "image": "book.jpg", "angle": 15, "scale": 1.0,
+        "oracle_repeatability_reduced_res": 0.8,
+        "pipeline_repeatability_reduced_res": 0.79}
+
+
 @pytest.mark.parametrize("main", [tmap.main, teval.main],
                          ids=["mapping", "eval"])
 def test_entry_points_default_to_cuda(main, tmp_path, monkeypatch):
