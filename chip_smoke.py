@@ -14,8 +14,9 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      runs, CUDA events, each run queued behind a spin kernel that hides
      the host's launch overhead) beside the least time the card could
      take (bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s, the
-     larger; K4's subtractions and adds, which have no FMA form, at the
-     33.5 T/s issue rate) and, for K1 and K1-batch, one cuDNN
+     larger; K4's and K3-ori's and K3-desc's operations, which have no
+     FMA form, at the 33.5 T/s issue rate) and, for K1 and K1-batch, one
+     cuDNN
      convolution that computes the same blur (no single PyTorch call
      computes the other kernels' functions); K1, K1-batch, K2, K2-batch,
      K3 and K4 bit for bit (torch.equal), K1 at every shape
@@ -33,16 +34,26 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      0 of the 1080p scene with its real keypoints plus slots whose
      windows start outside the image, within rtol 1e-5 and
      atol 1e-5 * max|hist| per row of their plain versions on valid rows
-     (the sums only run in another order), and bit-identical across two
-     launches; K3-ori and K3-desc also over the batch step's 8 frames in
+     (the plain versions sum floats in another order, the kernels
+     integers), and bit-identical across two launches; the first 64 of
+     those slots in a launch of their own (each keypoint split across a
+     cluster of CTAs) at the same bounds, bit-identical across two
+     launches and bit for bit the same keypoints' rows of the larger
+     launch, and timed; K3-ori and K3-desc also over the batch step's 8
+     frames in
      one launch each (8 x 2 stacked planes of 1080 + pad x 1920 + pad,
      each frame's real keypoints plus slots starting outside the image
      and invalid slots at stack layer -1, which in frames >= 1 must
      clamp inside their own frame), against their plain versions at the
-     same bounds and, frame by frame, equal to the single-frame launch;
-     K3-desc again under sift_tpu's default bf16 arm (descr_rc_bf16) on
-     the same slots, one frame and B = 8, at the same bounds, timed
-     beside the f32 arm;
+     same bounds and, frame by frame, equal to the single-frame launch,
+     and frame 0's first 64 slots alone bit for bit their rows of the
+     batched launch and of frame 0's single-frame launch; K3-desc again
+     under sift_tpu's default bf16 arm (descr_rc_bf16) on the same slots,
+     one frame and B = 8, at the same bounds, timed beside the f32 arm;
+     K3-ori and K3-desc (both arms) on a 0/255 checkerboard of 2x2
+     squares at the largest radius, where every sample adds the largest
+     magnitude, at N = 64 and N = 1024 against their plain versions at
+     the same bounds, the 64 rows bit for bit the larger launch's;
      K2's compact scan and the select kernel, as
      top_candidates and top_candidates_batch launch them, under
      torch.equal against top_candidates_plain (the stable sort of the
@@ -155,6 +166,7 @@ BATCH = 8
 ROLL_STEP = 17       # columns between consecutive frames (bench.py:493)
 TIMING_RUNS = 20
 EXTRA_SLOTS = 64     # phase-2 K3-ori/K3-desc slots starting outside the image
+SMALL_SLOTS = 64     # phase-2 K3-ori/K3-desc small launch (octave 4's cap)
 TRAP_SLOTS = 16      # phase-2 batched K3: invalid slots a frame at layer -1
 KERNELS = ("K1", "K1-batch", "K2", "K2-batch", "K2-compact", "K2-select",
            "K3", "K3-ori", "K3-desc", "K4")
@@ -167,12 +179,27 @@ F32_ISSUE_PER_S = 33.5e12
 # torch.cuda._sleep spins for a count of clock cycles; at most 1.98 GHz
 # on the H100, so a count of seconds x 2e9 spins at least that long
 SPIN_CYCLES_PER_S = 2.0e9
-# float32 operations per binned sample, counted in csrc/ori_hist.cu and
-# csrc/descr_hist.cu (expf, sqrtf and a division counted as one each)
-ORI_OPS_PER_SAMPLE = 26
-DESC_OPS_PER_SAMPLE = 70
-# the bf16 arm rounds 6 more values a sample: 4 row x column weights and
-# 2 orientation weights (csrc/descr_hist.cu corner_weights)
+# float32 operations of the histogram function a sample needs, counted
+# in csrc/ori_hist.cu and csrc/descr_hist.cu (hist_bound), each
+# multiply, add, subtract, compare, floor and absolute value one; each
+# special function one, its special-function-unit op (expf: ex2, sqrtf:
+# rsqrt, the division in fastAtan2: rcp; 3 a binned sample), its fix-up
+# instructions not counted. The kernels' own work (the integer scale,
+# its conversions, the adds) is not the function's and is left out.
+# K3-desc's every box sample: its rotated offsets (4 multiplies, 2
+# adds), the bin shifts (2) and the 4 bin tests; a binned sample: the
+# gradient (2), the weight (4 and ex2), the magnitude (3 and rsqrt),
+# fastAtan2 (17 and rcp), the orientation bin (2), mag (1), 3 floors, 3
+# fractions and the corner weights (17: 1 - fr, 1 - fc, the 2
+# orientation weights (3), the 4 distinct row x column products and the
+# 8 corner products). K3-ori's binned sample: the gradient (2), the
+# weight (1 and ex2), the magnitude (3 and rsqrt), fastAtan2 (17 and
+# rcp), wgt * mag and the bin (1); its box tests are integer.
+ORI_OPS_PER_SAMPLE = 28
+DESC_BOX_OPS_PER_SAMPLE = 12
+DESC_OPS_PER_SAMPLE = 55
+# the bf16 arm rounds 6 more values a sample: the 4 row x column weights
+# and the 2 orientation weights (csrc/descr_hist.cu corner_weights)
 DESC_BF16_OPS_PER_SAMPLE = DESC_OPS_PER_SAMPLE + 6
 # phase 6, the mapping path: (frames, (H, W)) of eval_mapping's gated
 # configuration, of tests/test_mapping.py's sequence and of the CLI's
@@ -435,30 +462,98 @@ def blur_library(x, kmat):
         *x.shape[:-2], len(kmat), *x.shape[-2:])
 
 
-def window_bound(shape, p: int, rad: int, layer, r, c, radius, keep,
-                 n_in: int, n_out: int, ops_per_sample: int,
-                 frames: int = 1) -> tuple:
-    """K3-ori / K3-desc: the stack pixels the kept keypoints' windows
-    reach (each read once), n_in bytes of keypoint arguments, n_out bytes
-    of histograms; ops_per_sample for every sample of each box. shape is
-    the (frames * L, Hp, Wp) stack; layer, r, c, radius and keep are the
-    frames' keypoints back to back, each layer clamped inside its frame
-    as the kernels clamp it."""
-    nlay, hp, wp = shape
-    touched = np.zeros(shape, bool)
+def hist_args(name, args) -> dict:
+    """The fields of one K3-ori or K3-desc call's wrapper arguments
+    (orientation_hist: padded, layer, r, c, radius, expf_scale, cfg,
+    row_bounds; descriptor_hist: padded, layer, r, c, cos_t, sin_t,
+    radius, ori, valid, cfg, chunk, row_bounds), the keypoint fields
+    flattened over the frames."""
+    import torch
+    from sift_tpu_torch.ops.ori_hist_cuda import frame_stack, row_window
+    ori = name == "K3-ori"
+    cfg = args[6] if ori else args[9]
+    rows = args[7 if ori else 11] if len(args) > (7 if ori else 11) else None
+    rad = cfg.ori_patch_radius if ori else cfg.descr_patch_radius
+    stack, frames, _ = frame_stack(args[0])
+    flat = [a.reshape(-1) for a in args[1:4]]
+    radius = (args[4] if ori else args[6]).reshape(-1)
+    keep = (torch.ones_like(radius, dtype=torch.bool) if ori
+            else args[8].reshape(-1))
+    out = dict(cfg=cfg, rad=rad, stack=stack, frames=frames, layer=flat[0],
+               r=flat[1], c=flat[2], radius=radius,
+               keep=keep & (radius >= 0),
+               window=row_window(rows, stack.shape[1] - 2 * (rad + 1)),
+               w=stack.shape[2] - 2 * (rad + 1))
+    if not ori:
+        out.update(cos_t=args[4].reshape(-1), sin_t=args[5].reshape(-1))
+    return out
+
+
+def hist_samples(name, a: dict, chunk: int = 256) -> tuple:
+    """(box samples, binned samples) of one K3-ori or K3-desc call: every
+    sample of the kept keypoints' (2R + 1)^2 boxes, and those the plain
+    versions' masks keep (inside the image and the row window; K3-desc
+    also inside the rotated descriptor square)."""
+    import torch
+    rad, (row_lo, row_hi), w = a["rad"], a["window"], a["w"]
+    off = torch.arange(-rad, rad + 1, device=a["r"].device)
+    ii, jj = off[None, :, None], off[None, None, :]
+    fi, fj = ii.to(torch.float32), jj.to(torch.float32)
+    d = a["cfg"].descr_width
+    rr = torch.clamp(a["radius"], max=rad)
+    box = binned = 0
+    for s in range(0, rr.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        keep = a["keep"][sl][:, None, None]
+        R = rr[sl][:, None, None]
+        yy, xx = a["r"][sl][:, None, None] + ii, a["c"][sl][:, None, None] + jj
+        inbox = keep & (ii.abs() <= R) & (jj.abs() <= R)
+        m = (inbox & (yy > row_lo) & (yy < row_hi - 1) & (xx > 0)
+             & (xx < w - 1))
+        if name == "K3-desc":
+            ct = a["cos_t"][sl][:, None, None]
+            st = a["sin_t"][sl][:, None, None]
+            rbin = (fj * st + fi * ct) + (d / 2 - 0.5)
+            cbin = (fj * ct - fi * st) + (d / 2 - 0.5)
+            m &= (rbin > -1) & (rbin < d) & (cbin > -1) & (cbin < d)
+        box += int(inbox.sum())
+        binned += int(m.sum())
+    return box, binned
+
+
+def hist_bound(name, args) -> tuple:
+    """K3-ori / K3-desc, one call (its wrapper arguments): the stack
+    pixels the kept keypoints' windows reach, each read once, the
+    keypoint arguments read once and the histograms written once, at the
+    HBM rate; or the float32 operations of every box sample and of every
+    binned sample (hist_samples), which have no FMA form in the kernels,
+    at the issue rate F32_ISSUE_PER_S; the larger."""
+    a = hist_args(name, args)
+    stack = a["stack"]
+    nlay, hp, wp = stack.shape
+    rad = a["rad"]
+    p = 2 * rad + 3
+    layer, r, c, radius, keep = (a[k].cpu().numpy() for k in
+                                 ("layer", "r", "c", "radius", "keep"))
+    touched = np.zeros(stack.shape, bool)
     boxes = np.minimum(radius, rad)
-    keep = keep & (boxes >= 0)
-    lpf, kpf = nlay // frames, len(layer) // frames
-    lay = (np.clip(layer, 0, lpf - 1)
-           + np.arange(len(layer)) // kpf * lpf)
+    lpf, kpf = nlay // a["frames"], len(layer) // a["frames"]
+    lay = np.clip(layer, 0, lpf - 1) + np.arange(len(layer)) // kpf * lpf
     rs = np.clip(r, 0, hp - p) + rad - boxes
     cs = np.clip(c, 0, wp - p) + rad - boxes
     for k in np.nonzero(keep)[0]:
         span = 2 * boxes[k] + 3
         touched[lay[k], rs[k]:rs[k] + span, cs[k]:cs[k] + span] = True
-    samples = float(((2 * boxes[keep] + 1) ** 2).sum())
-    return bound_ms(4.0 * touched.sum() + n_in + n_out,
-                    ops_per_sample * samples)
+    box, binned = hist_samples(name, a)
+    n = len(layer)
+    if name == "K3-ori":
+        n_io, ops = n * (20 + 4 * 36), binned * ORI_OPS_PER_SAMPLE
+    else:
+        per = (DESC_BF16_OPS_PER_SAMPLE if a["cfg"].descr_rc_bf16
+               else DESC_OPS_PER_SAMPLE)
+        n_io = n * (29 + 4 * 360)
+        ops = box * DESC_BOX_OPS_PER_SAMPLE + binned * per
+    return bound_ms(4.0 * touched.sum() + n_io, float(ops), F32_ISSUE_PER_S)
 
 
 def blur_launches(img, octs, batched: bool, cfg) -> list:
@@ -769,6 +864,8 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
         dogb0, cfg.detect_caps[0], cfg), 0, cfg, cfg.out_caps[0])
     phase_fused_hist_batch(octb0, kpb, rng, report)
     del octb0, dogb0, kpb
+    phase_hist_extreme(report, dev)
+    phase_hist_nonfinite(report, dev)
     phase_band_kernels(img4k_np)
 
     # K4 at 1536 x 1536 with sentinel rows and tied duplicates, within a
@@ -1055,6 +1152,213 @@ def phase_select(dogs, dogs_obj, dogsb, record) -> None:
            bs)
 
 
+def hist_err(name, got, want, rows) -> float:
+    """Fails unless got is within rtol 1e-5 and atol 1e-5 * max|row| of
+    want on the rows selected by the bool mask `rows` (the plain versions
+    sum floats in another order; the kernels sum integers); returns the
+    largest absolute difference there."""
+    g = got[rows].reshape(int(rows.sum()), -1)
+    x = want[rows].reshape(g.shape)
+    atol = 1e-5 * x.abs().amax(dim=1, keepdim=True)
+    check(bool(((g - x).abs() <= 1e-5 * x.abs() + atol).all()),
+          f"{name} disagrees with its plain version")
+    return float((g - x).abs().max())
+
+
+def phase_small_hist(name, fn, plain, args, full, rows, where) -> dict:
+    """Phase 2: the first SMALL_SLOTS slots of a one-frame K3-ori or
+    K3-desc call (args) in a launch of their own, where the wrapper
+    splits each keypoint across a cluster of CTAs: against the plain
+    version, two launches bit-identical, and bit for bit the same
+    keypoints' rows of each larger launch in `full` ({label: rows});
+    timed. rows: the slots the plain version bins."""
+    import torch
+    from sift_tpu_torch.ops.ori_hist_cuda import cluster_size
+    k = SMALL_SLOTS
+    small = tuple(a[:k] if torch.is_tensor(a) and a.dim() == 1 else a
+                  for a in args)
+    check(bool(rows[:k].all()), f"{name}: the first {k} slots are not valid")
+    got, again = fn(*small), fn(*small)
+    want = plain(*small)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{name} at N={k}: two launches differ")
+    for label, rows_full in full.items():
+        check(torch.equal(got, rows_full[:k]),
+              f"{name} at N={k} differs from the same keypoints' rows of "
+              f"{label}")
+    err = hist_err(f"{name} at N={k}", got, want, rows[:k])
+    ms = median_ms(lambda: fn(*small))
+    pms = median_ms(lambda: plain(*small))
+    bnd = hist_bound(name.split()[0], small)
+    size = cluster_size(k, args[0].device)
+    print(f"phase 2 {name} small launch ({where}, N={k}, {size} CTAs a "
+          f"keypoint): max_abs_err={err!r} (two launches bit-identical, "
+          f"bit for bit the rows of {' and '.join(full)}) kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})")
+    return {"keypoints": k, "cluster": size, "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "bound_ms": float(bnd[0]), "bound_by": bnd[1]}
+
+
+def checkerboard_args(name, cfg, n: int, dev, seed: int = 5) -> tuple:
+    """Wrapper arguments of a K3-ori or K3-desc call on a 0/255
+    checkerboard of 2 x 2 squares, so that every central difference of
+    the window is +-255 and every sample adds the largest magnitude, at
+    the largest radius (radius = the patch radius, the descriptor's
+    rotated square filling the box) for n keypoints in the interior."""
+    import torch
+    import torch.nn.functional as F
+    rng = np.random.default_rng(seed)
+    nl = cfg.n_octave_layers
+    ori = name == "K3-ori"
+    rad = cfg.ori_patch_radius if ori else cfg.descr_patch_radius
+    h = w = 4 * rad + 64
+    yy, xx = np.mgrid[0:h, 0:w]
+    board = np.where((yy // 2 + xx // 2) % 2 == 0, 255.0, 0.0)
+    stack = torch.from_numpy(np.repeat(board[None], nl, 0).astype(
+        np.float32)).to(dev)
+    padded = F.pad(stack, (rad + 1,) * 4)
+
+    def ints(lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, n).astype(
+            np.int32)).to(dev)
+
+    layer, r, c = ints(0, nl), ints(rad + 2, h - rad - 2), ints(rad + 2,
+                                                                 w - rad - 2)
+    radius = torch.full((n,), rad, dtype=torch.int32, device=dev)
+    if ori:
+        sigma = cfg.ori_sig_fctr * rad / cfg.ori_radius_fctr
+        expf = torch.full((n,), -1.0 / (2.0 * sigma * sigma), device=dev)
+        return padded, layer, r, c, radius, expf, cfg
+    d = cfg.descr_width
+    hist_width = rad / (math.sqrt(2.0) * (d + 1) * 0.5)
+    theta = torch.from_numpy(rng.uniform(0.0, 360.0, n).astype(
+        np.float32)).to(dev)
+    rad_t = theta * (math.pi / 180.0)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    return (padded, layer, r, c, torch.cos(rad_t) / hist_width,
+            torch.sin(rad_t) / hist_width, radius, theta, valid, cfg)
+
+
+def phase_hist_extreme(report, dev) -> None:
+    """Phase 2, K3-ori and K3-desc (both arms) on checkerboard_args at
+    the largest radius, where an overflow of the kernels' integer scale
+    would show: against the plain versions (hist_err), at N = SMALL_SLOTS
+    (a cluster of CTAs a keypoint) and at N = out_caps[0] (one CTA),
+    whose first SMALL_SLOTS rows must equal the small launch's."""
+    import dataclasses
+
+    import torch
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops.descr_hist_cuda import (descriptor_hist,
+                                                    descriptor_hist_plain)
+    from sift_tpu_torch.ops.ori_hist_cuda import (orientation_hist,
+                                                  orientation_hist_plain)
+    bcfg = dataclasses.replace(cfg, descr_rc_bf16=True)
+    n = cfg.out_caps[0]
+    parts = []
+    for name, fn, plain, c in (
+            ("K3-ori", orientation_hist, orientation_hist_plain, cfg),
+            ("K3-desc", descriptor_hist, descriptor_hist_plain, cfg),
+            ("K3-desc (bf16 arm)", descriptor_hist, descriptor_hist_plain,
+             bcfg)):
+        args = checkerboard_args(name.split()[0], c, n, dev)
+        args = args[:-1] + (c,)
+        small = tuple(a[:SMALL_SLOTS] if torch.is_tensor(a) and a.dim() == 1
+                      else a for a in args)
+        got, got_s = fn(*args), fn(*small)
+        want, want_s = plain(*args), plain(*small)
+        torch.cuda.synchronize()
+        rows = torch.ones(n, dtype=torch.bool, device=dev)
+        err = max(hist_err(f"{name} on the checkerboard", got, want, rows),
+                  hist_err(f"{name} on the checkerboard at N={SMALL_SLOTS}",
+                           got_s, want_s, rows[:SMALL_SLOTS]))
+        check(torch.equal(got[:SMALL_SLOTS], got_s),
+              f"{name} on the checkerboard: the N={SMALL_SLOTS} launch "
+              f"differs from the N={n} launch's rows")
+        peak = float(want.abs().max())
+        report[name.split()[0]]["extreme" + (
+            "_bf16" if "bf16" in name else "")] = {
+            "keypoints": n, "max_abs_err": err, "largest_bin": peak}
+        parts.append(f"{name} max_abs_err={err!r} (largest bin {peak!r})")
+    print(f"phase 2 K3 extreme window (0/255 checkerboard of 2x2 squares, "
+          f"largest radius, N={n} and N={SMALL_SLOTS}, equal rows): "
+          + "; ".join(parts))
+
+
+def nonfinite_args(name, cfg, dev) -> tuple:
+    """checkerboard_args for 2 keypoints, with an infinity in the padded
+    stack that only a sample keypoint 0 does not bin reads (its box's
+    leftmost column, left of the image: keypoint 0 at column 1), and a NaN
+    at keypoint 1's own pixel, which 4 of its binned samples read."""
+    args = checkerboard_args(name, cfg, 2, dev)
+    ori = name == "K3-ori"
+    rad = cfg.ori_patch_radius if ori else cfg.descr_patch_radius
+    padded, layer, r, c = (a.clone() for a in args[:4])
+    # keypoint 0 at column 1, keypoint 1 at the right, clear of its window
+    c[0], c[1] = 1, padded.shape[-1] - 2 * (rad + 1) - rad - 3
+    # the box sample (R, 0) of a full-radius box reads window (R + 1, 0),
+    # which is padded (row + rad + 1, col + rad - R) = (row + rad + 1, 1)
+    lay, kr = (int(v) for v in (layer[0], r[0]))
+    padded[lay, kr + rad + 1, 1] = float("inf")
+    lay, kr, kc = (int(v) for v in (layer[1], r[1], c[1]))
+    padded[lay, kr + rad + 1, kc + rad + 1] = float("nan")
+    return (padded, layer, r, c) + args[4:]
+
+
+def phase_hist_nonfinite(report, dev) -> None:
+    """Phase 2, K3-ori and K3-desc on nonfinite_args, one CTA a keypoint
+    and clusters of 8 (the cluster size patched in the wrappers): row 0,
+    whose infinity no binned sample reads, is finite and within hist_err
+    of the plain version; row 1, whose NaN 4 binned samples read, is all
+    NaN, and the plain version's row 1 is not finite; both launches give
+    the same bits."""
+    import torch
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops import descr_hist_cuda, ori_hist_cuda
+    chosen = ori_hist_cuda.cluster_size
+    parts = []
+    for name, fn, plain in (
+            ("K3-ori", ori_hist_cuda.orientation_hist,
+             ori_hist_cuda.orientation_hist_plain),
+            ("K3-desc", descr_hist_cuda.descriptor_hist,
+             descr_hist_cuda.descriptor_hist_plain)):
+        args = nonfinite_args(name, cfg, dev)
+        got = {}
+        try:
+            for size in (1, 8):
+                for m in (ori_hist_cuda, descr_hist_cuda):
+                    m.cluster_size = lambda *a, s=size: s
+                got[size] = fn(*args).reshape(2, -1)
+        finally:
+            for m in (ori_hist_cuda, descr_hist_cuda):
+                m.cluster_size = chosen
+        want = plain(*args).reshape(2, -1)
+        torch.cuda.synchronize()
+        check(torch.equal(got[1].view(torch.int32), got[8].view(torch.int32)),
+              f"{name} with a non-finite window: clusters of 1 and 8 CTAs "
+              f"differ")
+        row0 = torch.tensor([True, False], device=dev)
+        check(bool(torch.isfinite(got[1][0]).all()),
+              f"{name}: an infinity that no binned sample reads reached "
+              f"the row")
+        check(bool(torch.isfinite(want[0]).all()),
+              f"{name} (plain): an infinity that no binned sample reads "
+              f"reached the row")
+        err = hist_err(f"{name} beside an infinity it does not bin",
+                       got[1], want, row0)
+        check(bool(torch.isnan(got[1][1]).all()),
+              f"{name}: a NaN in binned samples did not make the row NaN")
+        check(not bool(torch.isfinite(want[1]).all()),
+              f"{name} (plain): a NaN in binned samples left the row "
+              f"finite")
+        report[name]["nonfinite"] = {"max_abs_err": err}
+        parts.append(f"{name} max_abs_err={err!r}")
+    print("phase 2 K3 non-finite windows (an infinity only an unbinned "
+          "sample reads: finite rows; a NaN binned samples read: NaN "
+          "rows; 1 and 8 CTAs a keypoint equal): " + "; ".join(parts))
+
+
 def phase_fused_hist(gauss, kp, rng, record, report) -> None:
     """Phase 2, K3-ori and K3-desc: the octave-0 stack of the scene with
     its real keypoints (N = out_caps[0] slots) plus EXTRA_SLOTS valid
@@ -1094,17 +1398,6 @@ def phase_fused_hist(gauss, kp, rng, record, report) -> None:
     angle = slots(kp.angle, kp.angle[pick])
     valid = slots(kp.valid, np.ones(e, bool))
 
-    def compare(name, got, want, rows):
-        g = got[rows].reshape(int(rows.sum()), -1)
-        x = want[rows].reshape(g.shape)
-        atol = 1e-5 * x.abs().amax(dim=1, keepdim=True)
-        check(bool(((g - x).abs() <= 1e-5 * x.abs() + atol).all()),
-              f"{name} disagrees with its plain version")
-        return float((g - x).abs().max())
-
-    def host(*ts):
-        return [t.cpu().numpy() for t in ts]
-
     # K3-ori on every slot, as the main path runs it (octave 0: the
     # octave scale is half the size)
     rp = cfg.ori_patch_radius
@@ -1116,16 +1409,12 @@ def phase_fused_hist(gauss, kp, rng, record, report) -> None:
     want = orientation_hist_plain(*args)
     torch.cuda.synchronize()
     check(torch.equal(got, again), "K3-ori: two launches differ")
-    err = compare("K3-ori", got, want, valid)
+    err = hist_err("K3-ori", got, want, valid)
     real_args = tuple(a[:n_real] if torch.is_tensor(a) and a.dim() == 1
                       else a for a in args)
     ms = median_ms(lambda: orientation_hist(*real_args))
     pms = median_ms(lambda: orientation_hist_plain(*real_args))
-    lay, rr, cc, rad = host(layer[:n_real] - 1, r[:n_real], c[:n_real],
-                            radius[:n_real])
-    bnd = window_bound(tuple(po.shape), 2 * rp + 3, rp, lay, rr, cc, rad,
-                       np.ones(n_real, bool), 20 * n_real, 4 * 36 * n_real,
-                       ORI_OPS_PER_SAMPLE)
+    bnd = hist_bound("K3-ori", real_args)
     print(f"phase 2 K3-ori orientation histograms p={2 * rp + 3} "
           f"N={n_real}+{e} (valid {int(valid.sum())}): max_abs_err={err!r} "
           f"(two launches bit-identical) kernel {ms:.4f} ms, plain "
@@ -1133,6 +1422,9 @@ def phase_fused_hist(gauss, kp, rng, record, report) -> None:
     record("K3-ori", "K3-ori fused window gather + orientation histogram",
            "sift_tpu_torch/csrc/ori_hist.cu",
            "sift_tpu/ops/ori_gather_pallas.py:109", err, ms, pms, bnd)
+    report["K3-ori"]["small"] = phase_small_hist(
+        "K3-ori", orientation_hist, orientation_hist_plain, real_args,
+        {f"the N={n_real}+{e} launch": got}, valid, "1080p octave 0")
 
     # K3-desc
     rd = cfg.descr_patch_radius
@@ -1148,16 +1440,12 @@ def phase_fused_hist(gauss, kp, rng, record, report) -> None:
     check(torch.equal(got, again), "K3-desc: two launches differ")
     check(bool((got[~valid] == 0).all() and (want[~valid] == 0).all()),
           "K3-desc: a slot with valid false is not zero")
-    err = compare("K3-desc", got, want, valid)
+    err = hist_err("K3-desc", got, want, valid)
     real_args = tuple(a[:n_real] if torch.is_tensor(a) and a.dim() == 1
                       else a for a in args)
     ms = median_ms(lambda: descriptor_hist(*real_args))
     pms = median_ms(lambda: descriptor_hist_plain(*real_args))
-    lay, rr, cc, rad, keep = host(layer[:n_real] - 1, r[:n_real], c[:n_real],
-                                  prm.radius[:n_real], valid[:n_real])
-    bnd = window_bound(tuple(pd.shape), 2 * rd + 3, rd, lay, rr, cc, rad,
-                       keep, 29 * n_real, 4 * 360 * n_real,
-                       DESC_OPS_PER_SAMPLE)
+    bnd = hist_bound("K3-desc", real_args)
     print(f"phase 2 K3-desc descriptor histograms p={2 * rd + 3} "
           f"N={n_real}+{e} (valid {int(valid.sum())}): max_abs_err={err!r} "
           f"(two launches bit-identical) kernel {ms:.4f} ms, plain "
@@ -1165,6 +1453,9 @@ def phase_fused_hist(gauss, kp, rng, record, report) -> None:
     record("K3-desc", "K3-desc fused window gather + descriptor histogram",
            "sift_tpu_torch/csrc/descr_hist.cu",
            "sift_tpu/ops/ori_gather_pallas.py:109", err, ms, pms, bnd)
+    report["K3-desc"]["small"] = phase_small_hist(
+        "K3-desc", descriptor_hist, descriptor_hist_plain, real_args,
+        {f"the N={n_real}+{e} launch": got}, valid, "1080p octave 0")
 
     # K3-desc under sift_tpu's default bf16 arm, on the same slots
     bcfg = dataclasses.replace(cfg, descr_rc_bf16=True)
@@ -1178,13 +1469,11 @@ def phase_fused_hist(gauss, kp, rng, record, report) -> None:
           "K3-desc (bf16 arm): a slot with valid false is not zero")
     check(not torch.equal(got_b, got), "K3-desc: the bf16 arm gives the "
                                        "f32 arm's bits")
-    err_b = compare("K3-desc (bf16 arm)", got_b, want_b, valid)
+    err_b = hist_err("K3-desc (bf16 arm)", got_b, want_b, valid)
     real_b = real_args[:-1] + (bcfg,)
     ms_b = median_ms(lambda: descriptor_hist(*real_b))
     pms_b = median_ms(lambda: descriptor_hist_plain(*real_b))
-    bnd_b = window_bound(tuple(pd.shape), 2 * rd + 3, rd, lay, rr, cc, rad,
-                         keep, 29 * n_real, 4 * 360 * n_real,
-                         DESC_BF16_OPS_PER_SAMPLE)
+    bnd_b = hist_bound("K3-desc", real_b)
     print(f"phase 2 K3-desc bf16 arm p={2 * rd + 3} N={n_real}+{e}: "
           f"max_abs_err={err_b!r} (two launches bit-identical) kernel "
           f"{ms_b:.4f} ms (f32 arm {ms:.4f} ms), plain {pms_b:.4f} ms at "
@@ -1193,7 +1482,10 @@ def phase_fused_hist(gauss, kp, rng, record, report) -> None:
         "keypoints": n_real, "max_abs_err": err_b, "ms": ms_b,
         "plain_ms": pms_b, "bound_ms": float(bnd_b[0]),
         "bound_by": bnd_b[1]}
-
+    report["K3-desc"]["small_bf16"] = phase_small_hist(
+        "K3-desc (bf16 arm)", descriptor_hist, descriptor_hist_plain,
+        real_b, {f"the N={n_real}+{e} launch": got_b}, valid,
+        "1080p octave 0")
 
 
 def phase_fused_hist_batch(gauss, kp, rng, report) -> None:
@@ -1262,39 +1554,26 @@ def phase_fused_hist_batch(gauss, kp, rng, report) -> None:
                                        device=dev),
                   torch.zeros((nb, t), dtype=torch.bool, device=dev))
 
-    def compare(name, got, want, rows):
-        g = got[rows].reshape(int(rows.sum()), -1)
-        x = want[rows].reshape(g.shape)
-        atol = 1e-5 * x.abs().amax(dim=1, keepdim=True)
-        check(bool(((g - x).abs() <= 1e-5 * x.abs() + atol).all()),
-              f"{name} at B={nb} disagrees with its plain version")
-        return float((g - x).abs().max())
-
-    def run(name, fn, plain, args, rows, n_in, n_out, ops, rad, radius,
-            keep, key="batch"):
+    def run(name, fn, plain, args, rows, key="batch"):
         got, again = fn(*args), fn(*args)
         want = plain(*args)
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"{name} at B={nb}: two launches "
                                        f"differ")
+        frames = [tuple(a[b] if torch.is_tensor(a) else a for a in args)
+                  for b in range(nb)]
+        ones = [fn(*f) for f in frames]
         for b in range(nb):
-            one = fn(*(a[b] if torch.is_tensor(a) else a for a in args))
-            check(torch.equal(got[b], one),
+            check(torch.equal(got[b], ones[b]),
                   f"{name} at B={nb}: frame {b} differs from the "
                   f"single-frame launch on it")
-        err = compare(name, got, want, rows)
+        err = hist_err(f"{name} at B={nb}", got, want, rows)
         real = tuple(a[:, :n_real] if torch.is_tensor(a) and a.dim() == 2
                      else a for a in args)
         ms = median_ms(lambda: fn(*real))
         pms = median_ms(lambda: plain(*real), runs=3)
-        lay, rr, cc, rd_, kp_ = (a[:, :n_real].reshape(-1).cpu().numpy()
-                                 for a in (args[1], args[2], args[3],
-                                           radius, keep))
         stack = args[0]
-        bnd = window_bound((nb * stack.shape[1], *stack.shape[2:]),
-                           2 * rad + 3, rad, lay, rr, cc, rd_, kp_,
-                           n_in * nb * n_real, n_out * nb * n_real, ops,
-                           frames=nb)
+        bnd = hist_bound(name, real)
         print(f"phase 2 {name} ({key}) over B={nb} frames "
               f"{tuple(stack.shape)} "
               f"N={nb}x({n_real}+{e}+{t}) (valid {int(valid.sum())}, "
@@ -1307,13 +1586,19 @@ def phase_fused_hist_batch(gauss, kp, rng, report) -> None:
             "frames": nb, "keypoints": nb * n_real, "max_abs_err": err,
             "ms": ms, "plain_ms": pms, "bound_ms": float(bnd[0]),
             "bound_by": bnd[1]}
+        # frame 0's first SMALL_SLOTS slots alone: bit for bit their rows
+        # of the batched launch and of frame 0's single-frame launch
+        report[name][f"{key}_small"] = phase_small_hist(
+            f"{name} ({key})", fn, plain, frames[0],
+            {f"the B={nb} launch": got[0],
+             f"frame 0's N={rows.shape[1]} launch": ones[0]}, rows[0],
+            "batch step frame 0")
 
     rp = cfg.ori_patch_radius
     po = F.pad(gauss[:, 1:1 + nl], (rp + 1,) * 4)
     radius, expf_scale = orientation_params(size * 0.5, cfg)
     run("K3-ori", orientation_hist, orientation_hist_plain,
         (po, layer - 1, r, c, radius, expf_scale, cfg),
-        torch.ones_like(valid), 20, 4 * 36, ORI_OPS_PER_SAMPLE, rp, radius,
         torch.ones_like(valid))
     rd = cfg.descr_patch_radius
     pd = F.pad(gauss[:, 1:1 + nl], (rd + 1,) * 4)
@@ -1324,11 +1609,9 @@ def phase_fused_hist_batch(gauss, kp, rng, report) -> None:
     got = descriptor_hist(*dargs)
     check(bool((got[~valid] == 0).all()),
           f"K3-desc at B={nb}: a slot with valid false is not zero")
-    run("K3-desc", descriptor_hist, descriptor_hist_plain, dargs, valid, 29,
-        4 * 360, DESC_OPS_PER_SAMPLE, rd, prm.radius, valid)
+    run("K3-desc", descriptor_hist, descriptor_hist_plain, dargs, valid)
     bargs = dargs[:-1] + (dataclasses.replace(cfg, descr_rc_bf16=True),)
-    run("K3-desc", descriptor_hist, descriptor_hist_plain, bargs, valid, 29,
-        4 * 360, DESC_BF16_OPS_PER_SAMPLE, rd, prm.radius, valid,
+    run("K3-desc", descriptor_hist, descriptor_hist_plain, bargs, valid,
         key="batch_bf16")
 
 

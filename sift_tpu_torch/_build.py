@@ -48,14 +48,15 @@ _SIGNATURES = {
                             _P),
     "sift_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # src, layer, row, col, radius, expf_scale, out, N, B (frames), L,
-    # Hp, Wp, rp, row_lo, row_hi (the image's rows), stream
+    # Hp, Wp, rp, row_lo, row_hi (the image's rows), cluster (CTAs a
+    # keypoint), stream
     "sift_ori_hist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _P),
+                      _I, _I, _P),
     # src, layer, row, col, cos_t, sin_t, radius, ori, valid, out,
     # N, B (frames), L, Hp, Wp, rd, row_lo, row_hi, rc_bf16 (the bf16
-    # arm), stream
+    # arm), cluster (CTAs a keypoint), stream
     "sift_descr_hist": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # query, train, G (pairs), N, M, D, P, span (P train splits of span
     # rows), part_d1, part_d2, part_idx ((P, G, N) scratch), idx, d1, d2,
     # stream

@@ -10,43 +10,57 @@
 // trilinear scatter of calcSIFTDescriptor (src/sift.cpp:579-753) became
 // a matrix product because the TPU has a matrix unit and no cheap
 // scatter; the port's plain version keeps that form
-// (ops/descr_hist_cuda.py, torch.bmm over 64-keypoint chunks). Here a
-// block stages its keypoint's window in shared memory and scatters each
-// sample's 8 trilinear weights into a shared-memory histogram: neither
-// the 85 x 85 patch nor the (P, 36) one-hot reaches device memory, and
-// one launch covers all keypoints of an octave. The output is `hist`
-// before the circular fold; the fold and the normalization chain stay
-// in PyTorch.
+// (ops/descr_hist_cuda.py, torch.bmm over 64-keypoint chunks). Here each
+// keypoint's window is staged in shared memory and every sample adds its
+// 8 trilinear weights to a shared-memory histogram: neither the 85 x 85
+// patch nor the (P, 36) one-hot reaches device memory, and one launch
+// covers all keypoints of an octave, of one frame or of all B frames of
+// a batch (the frames' planes stacked, load_band's per-frame clamp).
+// The output is `hist` before the circular fold; the fold and the
+// normalization chain stay in PyTorch.
 //
-// Work: one block of 8 warps per keypoint, one launch for all keypoints
-// of an octave, of one frame or of all B frames of a batch (the frames'
-// planes stacked, load_window's per-frame clamp); slots with valid false
-// write zeros. The block loads only the rows and columns its radius
-// R = min(radius, rd) reaches, a (2R + 3)^2 sub-window of the
-// (2 rd + 3)^2 patch, with coalesced row loads; samples outside that
-// box are masked in the plain version, so they are skipped. 40 KB of
-// shared memory a block lets 5 blocks share an SM, so one block's loads
-// overlap another's binning; there is no TMA or cp.async pipeline: the
-// window starts at arbitrary columns, and the per-sample arithmetic
-// dominates the load.
+// Work: a thread block cluster of 1..8 CTAs of 8 warps per keypoint,
+// the cluster size chosen by the wrapper from the keypoint count
+// (ori_hist_cuda.cluster_size), so that an octave with fewer keypoints
+// than the card has SMs still spreads over the card. CTA k of a cluster
+// bins the k-th band of rows of the keypoint's (2R + 1)^2 sample box,
+// R = min(radius, rd), and loads only that band's window rows plus the
+// one-row gradient halo, with coalesced row loads. Samples outside the
+// box are masked in the plain version, so they are skipped. The CTAs
+// agree on the keypoint's integer scale through distributed shared
+// memory (each CTA's largest gradient component, one cluster barrier);
+// each sample adds its 8 corner weights as integers (hist_common.cuh)
+// with 32-bit shared-memory atomics into its CTA's 64-bit histogram;
+// after a cluster barrier CTA 0 adds the other CTAs' histograms through
+// distributed shared memory and writes the row. One CTA a keypoint is a
+// plain launch. Slots with valid false write zeros.
 //
-// What bounds it on the H100: neither traffic nor float rate. The
-// windows of 1024 keypoints are at most 30 MB (9 us at 3.35 TB/s), with
-// ~70 float operations a sample; measured on an H100 80GB HBM3 at
-// 700 W, the 1024 keypoints of a 1080p octave 0 take 0.14 ms, about 40x
-// the 3.4 us float32 bound of their samples. The dependent per-sample
-// chain (expf, sqrtf, a division) and the warp vote and 8 store passes
-// of the histogram update are the likely limits (not profiled).
+// What bounds it on the H100: neither bytes nor float rate, but the
+// latency of each CTA's phases and the serialised adds of lanes that hit
+// one bin. Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6,
+// run Y9: tools/torch_kernel_times.py, tools/torch_k3_split.py): the
+// 1,024 slots of a 1080p octave 0 take 0.0534 ms (the previous design,
+// a warp vote that summed floats in a fixed order, 0.0783); of the
+// split's 0.0536 ms the window load with the scale's pass and barriers
+// is 0.0204, the per-sample arithmetic 0.0131 and the integer adds
+// 0.0201; the batch step's 8 x 1,024 take 0.2805 ms (0.4213), 64
+// keypoints split over clusters of 5 CTAs 0.0150 (one CTA each,
+// 0.0276). The bound, the function's float operations at the 33.5 T/s
+// issue rate, is 0.0038 ms.
 //
-// Summation order (fixed, so two launches are bit-identical): samples
-// are numbered row-major over the (2R + 1)^2 box; warp w takes samples
-// 32 (w + 8 k) + lane for k = 0, 1, ...; within one such step the lanes
-// whose samples share a lower bin (r0, c0, o0) are summed in lane order
-// by the lowest of them, corner by corner, and the 8 corners are added
-// to the warp's private histogram in 8 passes (in one pass distinct
-// lower bins give distinct addresses); the 8 warp histograms are summed
-// in warp order. No float atomics. The result differs from the plain
-// version's bmm only by that order.
+// Numerics (hist_common.cuh): each sample's bins and its 8 float32
+// weights are the plain version's, operation by operation; the sums are
+// integers at a per-keypoint power-of-two scale taken from the largest
+// finite gradient component of the keypoint's box, so no bin can
+// overflow, and every CTA of a cluster uses the same scale. The bits do
+// not depend on the order of the adds, the cluster size or the number
+// of frames in the launch. The result differs from the plain version's
+// bmm by that version's float summation order and by at most half a
+// unit 2^-e per sample and bin, 2^-30 of that largest component. A
+// binned sample whose magnitude is not finite makes the row NaN; a NaN
+// or an infinity that is not binned never touches it (the plain
+// version's one-hot product turns a masked-out sample's NaN angle into
+// a NaN row, 0 * NaN).
 //
 // The bf16 arm (rc_bf16, sift_tpu's descr_rc_bf16=True,
 // sift_tpu/ops/descriptor.py:139-165): JAX casts the two einsum operands
@@ -54,8 +68,8 @@
 // magnitude-weighted orientation weight ow = wo mag, and sums their
 // products in float32. Here each corner rounds the same two factors
 // (round to nearest even) before their product; the product of two
-// bfloat16 values is exact in float32, so the sums keep the order
-// above. A template parameter, so the f32 arm's inner loop is unchanged.
+// bfloat16 values is exact in float32. A template parameter, so the f32
+// arm's inner loop is unchanged.
 
 #include <cuda_bf16.h>
 
@@ -69,8 +83,8 @@ constexpr int kD = 4;                           // spatial cells per side
 constexpr int kN = 8;                           // orientation bins
 constexpr int kRowStride = (kD + 2) * (kN + 2);
 constexpr int kBins = (kD + 2) * kRowStride;    // 360
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr float kBinShift = kD / 2 - 0.5f;      // 1.5
 constexpr float kWgtScale = -1.f / (kD * kD * 0.5f);   // -0.125
 constexpr float kObinScale = static_cast<float>(kN / 360.0);
@@ -103,40 +117,19 @@ __device__ __forceinline__ void corner_weights(float fr, float fc, float fo,
   }
 }
 
-// hist[key + corner k] += the 8 weights over the warp's lanes (key is
-// the lower bin; lanes with key < 0 add nothing). The leader of each
-// key sums its group's weights in lane order; the 8 corners are stored
-// in 8 passes, so one pass never has two lanes on one address.
+// hist[key + corner k] += the 8 weights as integer units (key is the
+// lower bin); the 8 bins are distinct.
 template <bool kBf16>
-__device__ __forceinline__ void warp_add_trilinear(float* hist, int key,
-                                                   float fr, float fc,
-                                                   float fo, float mag,
-                                                   int lane) {
-  Group g = group_of(key, lane);
-  float acc[8];
-  corner_weights<kBf16>(fr, fc, fo, mag, acc);
-  while (__any_sync(kFullMask, g.rest != 0)) {
-    const int src = g.rest ? __ffs(g.rest) - 1 : lane;
-    const float tr = __shfl_sync(kFullMask, fr, src);
-    const float tc = __shfl_sync(kFullMask, fc, src);
-    const float to = __shfl_sync(kFullMask, fo, src);
-    const float tm = __shfl_sync(kFullMask, mag, src);
-    if (g.rest) {
-      float v[8];
-      corner_weights<kBf16>(tr, tc, to, tm, v);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) acc[k] = __fadd_rn(acc[k], v[k]);
-      g.rest &= g.rest - 1;
-    }
-  }
+__device__ __forceinline__ void add_corners(unsigned long long* hist, int key,
+                                            float fr, float fc, float fo,
+                                            float mag, float scale) {
+  float v[8];
+  corner_weights<kBf16>(fr, fc, fo, mag, v);
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    if (g.leader) {
-      const int b = key + (k >> 2) * kRowStride + ((k >> 1) & 1) * (kN + 2)
-                    + (k & 1);
-      hist[b] = __fadd_rn(hist[b], acc[k]);
-    }
-    __syncwarp();
+    const int b = key + (k >> 2) * kRowStride + ((k >> 1) & 1) * (kN + 2)
+                  + (k & 1);
+    add_units(&hist[b], to_units(v[k], scale));
   }
 }
 
@@ -152,77 +145,83 @@ descr_hist_kernel(const float* __restrict__ src,
                   const unsigned char* __restrict__ valid,
                   float* __restrict__ out, int kpf, int lpf, int Hp, int Wp,
                   int rd, int w, int row_lo, int row_hi) {
-  extern __shared__ float smem[];
-  const int p = 2 * rd + 3;
-  float* win = smem;                      // (p, p)
-  float* whist = smem + p * p;            // (kWarps, kBins)
-  const int n = blockIdx.x;
+  extern __shared__ unsigned long long smem[];
+  unsigned long long* hist = smem;                        // (kBins,)
+  float* grads = reinterpret_cast<float*>(hist + kBins);   // (kWarps,)
+  int* flag = reinterpret_cast<int*>(grads + kWarps);      // (1,)
+  float* win = reinterpret_cast<float*>(flag + 1);         // (rows, span)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int size = static_cast<int>(cluster.num_blocks());
+  const int n = blockIdx.x / size;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float* o = out + (size_t)n * kBins;
   const int R = min(radius[n], rd);
-  if (!valid[n] || R < 0) {
-    for (int t = tid; t < kBins; t += kThreads) o[t] = 0.f;
+  if (!valid[n] || R < 0) {   // alike for every CTA of the cluster
+    if (cluster.block_rank() == 0) {
+      for (int t = tid; t < kBins; t += kThreads) o[t] = 0.f;
+    }
     return;
   }
 
-  for (int t = tid; t < kWarps * kBins; t += kThreads) whist[t] = 0.f;
-  load_window(win, src, layer[n], row[n], col[n], n / kpf, lpf, Hp, Wp, p,
-              rd - R, 2 * R + 3, warp, kWarps, lane);
-  __syncthreads();
-
+  const int side = 2 * R + 1, span = 2 * R + 3;
+  const Band band = band_of(side, static_cast<int>(cluster.block_rank()),
+                            size);
   const int kr = row[n], kc = col[n];
-  const float ct = cos_t[n], st = sin_t[n], ori_n = ori[n];
-  const int side = 2 * R + 1;
-  const int nsamp = side * side;
-  float* hist = whist + warp * kBins;
-  for (int b = warp * 32; b < nsamp; b += kThreads) {
-    const int s = b + lane;
-    int key = -1;
-    float fr = 0.f, fc = 0.f, fo = 0.f, mag = 0.f;
-    if (s < nsamp) {
-      const int ii = s / side - R, jj = s % side - R;
-      const float fi = static_cast<float>(ii), fj = static_cast<float>(jj);
-      const float c_rot = __fsub_rn(__fmul_rn(fj, ct), __fmul_rn(fi, st));
-      const float r_rot = __fadd_rn(__fmul_rn(fj, st), __fmul_rn(fi, ct));
-      const float rbin = __fadd_rn(r_rot, kBinShift);
-      const float cbin = __fadd_rn(c_rot, kBinShift);
-      const int rr = kr + ii, cc = kc + jj;
-      if (rbin > -1.f && rbin < kD && cbin > -1.f && cbin < kD &&
-          rr > row_lo && rr < row_hi - 1 && cc > 0 && cc < w - 1) {
-        // sample (ii, jj) sits at window (i + 1, j + 1)
-        const int i = ii + rd, j = jj + rd;
-        const float dx = __fsub_rn(win[(i + 1) * p + j + 2],
-                                   win[(i + 1) * p + j]);
-        const float dy = __fsub_rn(win[i * p + j + 1],
-                                   win[(i + 2) * p + j + 1]);
-        const float wgt = expf(__fmul_rn(
-            __fadd_rn(__fmul_rn(c_rot, c_rot), __fmul_rn(r_rot, r_rot)),
-            kWgtScale));
-        const float mag_g = sqrtf(__fadd_rn(__fmul_rn(dx, dx),
-                                            __fmul_rn(dy, dy)));
-        const float theta = fast_atan2_deg(dy, dx);
-        const float obin = __fmul_rn(__fsub_rn(theta, ori_n), kObinScale);
-        mag = __fmul_rn(mag_g, wgt);
-        const float r0 = floorf(rbin), c0 = floorf(cbin), o0 = floorf(obin);
-        fr = __fsub_rn(rbin, r0);
-        fc = __fsub_rn(cbin, c0);
-        fo = __fsub_rn(obin, o0);
-        int oi = static_cast<int>(o0);
-        if (oi < 0) oi += kN;
-        if (oi >= kN) oi -= kN;
-        key = (static_cast<int>(r0) + 1) * kRowStride
-              + (static_cast<int>(c0) + 1) * (kN + 2) + oi;
-      }
-    }
-    warp_add_trilinear<kBf16>(hist, key, fr, fc, fo, mag, lane);
-  }
+  for (int t = tid; t < kBins; t += kThreads) hist[t] = 0ull;
+  if (tid == 0) *flag = 0;
+  load_band(win, src, layer[n], kr, kc, n / kpf, lpf, Hp, Wp, 2 * rd + 3,
+            rd - R + band.lo, band_window_rows(band.hi - band.lo), rd - R,
+            span, warp, kWarps, lane);
   __syncthreads();
+  const int nband = (band.hi - band.lo) * side;
+  const float g = warp_max(band_gradient(win, span, side, nband, tid,
+                                         kThreads));
+  if (lane == 0) grads[warp] = g;
+  cluster.sync();
+  const int e = cluster_scale_exponent(cluster, grads, kWarps, lane);
+  const float scale = exp2_float(e);
 
-  for (int t = tid; t < kBins; t += kThreads) {
-    float acc = whist[t];
-    for (int k = 1; k < kWarps; ++k) acc = __fadd_rn(acc, whist[k * kBins + t]);
-    o[t] = acc;
+  const float ct = cos_t[n], st = sin_t[n], ori_n = ori[n];
+  SampleWalk walk(tid, kThreads, side);
+  for (int s = tid; s < nband; s += kThreads, walk.next()) {
+    const int i = walk.i, j = walk.j;
+    const int ii = band.lo + i - R, jj = j - R;
+    const float fi = static_cast<float>(ii), fj = static_cast<float>(jj);
+    const float c_rot = __fsub_rn(__fmul_rn(fj, ct), __fmul_rn(fi, st));
+    const float r_rot = __fadd_rn(__fmul_rn(fj, st), __fmul_rn(fi, ct));
+    const float rbin = __fadd_rn(r_rot, kBinShift);
+    const float cbin = __fadd_rn(c_rot, kBinShift);
+    const int rr = kr + ii, cc = kc + jj;
+    if (rbin > -1.f && rbin < kD && cbin > -1.f && cbin < kD &&
+        rr > row_lo && rr < row_hi - 1 && cc > 0 && cc < w - 1) {
+      // the sample sits at band window (i + 1, j + 1)
+      const float* px = win + (i + 1) * span + j + 1;
+      const float dx = __fsub_rn(px[1], px[-1]);
+      const float dy = __fsub_rn(px[-span], px[span]);
+      const float wgt = expf(__fmul_rn(
+          __fadd_rn(__fmul_rn(c_rot, c_rot), __fmul_rn(r_rot, r_rot)),
+          kWgtScale));
+      const float mag_g = sqrtf(__fadd_rn(__fmul_rn(dx, dx),
+                                          __fmul_rn(dy, dy)));
+      const float theta = fast_atan2_deg(dy, dx);
+      const float obin = __fmul_rn(__fsub_rn(theta, ori_n), kObinScale);
+      const float mag = __fmul_rn(mag_g, wgt);
+      const float r0 = floorf(rbin), c0 = floorf(cbin), o0 = floorf(obin);
+      const float fr = __fsub_rn(rbin, r0);
+      const float fc = __fsub_rn(cbin, c0);
+      const float fo = __fsub_rn(obin, o0);
+      int oi = static_cast<int>(o0);
+      if (oi < 0) oi += kN;
+      if (oi >= kN) oi -= kN;
+      const int key = (static_cast<int>(r0) + 1) * kRowStride
+                      + (static_cast<int>(c0) + 1) * (kN + 2) + oi;
+      // the 8 values are at most mag, so finite where it is (a finite
+      // mag is below 2^65: dx * dx overflows beyond)
+      if (!isfinite(mag)) *flag = 1;   // every writer writes 1
+      add_corners<kBf16>(hist, key, fr, fc, fo, mag, scale);
+    }
   }
+  cluster_store(cluster, hist, flag, kBins, e, o, tid, kThreads);
 }
 
 template <bool kBf16>
@@ -231,19 +230,17 @@ cudaError_t launch(const float* src, const int* layer, const int* row,
                    const int* radius, const float* ori,
                    const unsigned char* valid, float* out, int N, int B,
                    int L, int Hp, int Wp, int rd, int w, int row_lo,
-                   int row_hi, cudaStream_t stream) {
+                   int row_hi, int cluster, cudaStream_t stream) {
   const int p = 2 * rd + 3;
-  const size_t smem = sizeof(float) * ((size_t)p * p + kWarps * kBins);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        descr_hist_kernel<kBf16>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  descr_hist_kernel<kBf16><<<N, kThreads, smem, stream>>>(
-      src, layer, row, col, cos_t, sin_t, radius, ori, valid, out, N / B,
-      L / B, Hp, Wp, rd, w, row_lo, row_hi);
-  return cudaGetLastError();
+  const size_t smem =
+      sizeof(unsigned long long) * kBins + sizeof(float) * kWarps +
+      sizeof(int) +
+      sizeof(float) * (size_t)band_window_rows(max_band_rows(rd, cluster)) * p;
+  const cudaError_t err = launch_clusters(
+      descr_hist_kernel<kBf16>, N, cluster, kThreads, smem, stream, src,
+      layer, row, col, cos_t, sin_t, radius, ori, valid, out, N / B, L / B,
+      Hp, Wp, rd, w, row_lo, row_hi);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -255,7 +252,8 @@ cudaError_t launch(const float* src, const int* layer, const int* row,
 // Keypoints [b N / B, (b + 1) N / B) belong to frame b. A sample counts
 // where its row lies strictly inside (row_lo, row_hi - 1), as in
 // sift_ori_hist: (0, h) for a whole image. rc_bf16 != 0 takes the bf16
-// arm.
+// arm. cluster (1..8): CTAs per keypoint; the result does not depend on
+// it.
 extern "C" int sift_descr_hist(const float* src, const int* layer,
                                const int* row, const int* col,
                                const float* cos_t, const float* sin_t,
@@ -263,19 +261,19 @@ extern "C" int sift_descr_hist(const float* src, const int* layer,
                                const unsigned char* valid, float* out, int N,
                                int B, int L, int Hp, int Wp, int rd,
                                int row_lo, int row_hi, int rc_bf16,
-                               void* stream_ptr) {
+                               int cluster, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (N == 0) return cudaSuccess;
   const int h = Hp - 2 * (rd + 1), w = Wp - 2 * (rd + 1);
   if (B < 1 || N % B != 0 || L % B != 0 || rd < 0 || L < B || h < 1 ||
-      w < 1) {
+      w < 1 || cluster < 1 || cluster > kMaxCluster) {
     return cudaErrorInvalidValue;
   }
   return rc_bf16
              ? launch<true>(src, layer, row, col, cos_t, sin_t, radius, ori,
                             valid, out, N, B, L, Hp, Wp, rd, w, row_lo,
-                            row_hi, stream)
+                            row_hi, cluster, stream)
              : launch<false>(src, layer, row, col, cos_t, sin_t, radius, ori,
                              valid, out, N, B, L, Hp, Wp, rd, w, row_lo,
-                             row_hi, stream);
+                             row_hi, cluster, stream);
 }

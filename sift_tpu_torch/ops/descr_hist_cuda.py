@@ -11,9 +11,22 @@ summed in float32. `descriptor_hist` launches the CUDA kernel
 `descriptor_hist_plain` for a CPU tensor. Both return the
 (N, d+2, d+2, n+2) histogram of calcSIFTDescriptor (src/sift.cpp:579-753)
 before the circular fold, zero for slots with valid false, with the
-per-sample arithmetic of the plain version; they differ only in the
-order of the sums. A sample counts where its row lies strictly inside
-(row_lo, row_hi - 1), (0, h) by default (ori_hist_cuda.row_window).
+per-sample arithmetic of the plain version. The kernel sums integers at
+a per-keypoint power-of-two scale (csrc/hist_common.cuh), so its bits
+depend neither on the order of the sums nor on the cluster size
+(ori_hist_cuda.cluster_size); it differs from the plain version by that
+version's float summation order and by at most half a unit of that
+scale per sample and bin. The scale comes from the largest finite
+gradient component of the keypoint's box, so a finite outlier that the
+kernel does not bin, far above the gradients it does, coarsens the
+unit. On non-finite input the two differ: the kernel's row is all NaN
+exactly when a sample it bins has a magnitude that is not finite, and a
+NaN or an infinity it does not bin never touches the row; the plain
+version's row is then non-finite too, but is also NaN when a sample it
+masks out has a NaN angle (0 * NaN in its one-hot product).
+A sample counts where its row lies strictly
+inside (row_lo, row_hi - 1), (0, h) by default
+(ori_hist_cuda.row_window).
 Like K3-ori, one call takes one frame, (L, Hp, Wp) with (N,) keypoint
 arguments, or B frames, (B, L, Hp, Wp) with (B, N) arguments, in one
 launch with each layer clamped inside its own frame.
@@ -38,8 +51,9 @@ from sift_tpu_torch import _build
 from sift_tpu_torch.config import SIFTConfig
 from sift_tpu_torch.ops.mathutil import fast_atan2_deg
 from sift_tpu_torch.ops.ori_gather_cuda import gather_patches_plain
-from sift_tpu_torch.ops.ori_hist_cuda import (check_frames, frame_stack,
-                                              row_window, stack_layer)
+from sift_tpu_torch.ops.ori_hist_cuda import (check_frames, cluster_size,
+                                              frame_stack, row_window,
+                                              stack_layer)
 
 _KERNEL_WIDTH = 4     # csrc/descr_hist.cu: kD
 _KERNEL_BINS = 8      # csrc/descr_hist.cu: kN
@@ -182,7 +196,7 @@ def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,
     """K3-desc: raw descriptor histograms (arguments and result as
     descriptor_hist_plain). CPU tensors take the plain version, in
     chunks of `chunk`; CUDA tensors launch the kernel once for all
-    frames, one block per keypoint."""
+    frames, a cluster of cluster_size CTAs per keypoint."""
     _check_args(padded, layer, r, c, cos_t, sin_t, radius, ori, valid, cfg)
     if padded.device.type == "cpu":
         return descriptor_hist_plain(padded, layer, r, c, cos_t, sin_t,
@@ -206,8 +220,8 @@ def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,
         for v in (cos_t, sin_t, ori))
     valid = valid.to(device=dev, dtype=torch.bool).reshape(-1).contiguous()
     nlay, hp, wp = stack.shape
-    row_lo, row_hi = row_window(row_bounds,
-                                hp - 2 * (cfg.descr_patch_radius + 1))
+    rd = cfg.descr_patch_radius
+    row_lo, row_hi = row_window(row_bounds, hp - 2 * (rd + 1))
     k = layer.shape[0]
     out = torch.empty((k, d + 2, d + 2, n + 2), dtype=torch.float32,
                       device=dev)
@@ -216,8 +230,9 @@ def descriptor_hist(padded: torch.Tensor, layer: torch.Tensor,
             stack.data_ptr(), layer.data_ptr(), r.data_ptr(), c.data_ptr(),
             cos_t.data_ptr(), sin_t.data_ptr(), radius.data_ptr(),
             ori.data_ptr(), valid.data_ptr(), out.data_ptr(), k, nb, nlay,
-            hp, wp, cfg.descr_patch_radius, row_lo, row_hi,
-            int(cfg.descr_rc_bf16), torch.cuda.current_stream().cuda_stream)
+            hp, wp, rd, row_lo, row_hi, int(cfg.descr_rc_bf16),
+            cluster_size(k, dev),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sift_descr_hist")
     descriptor_hist.launches += 1
     return out.reshape(*shape, d + 2, d + 2, n + 2)

@@ -7,7 +7,17 @@ the one-hot contraction of sift_tpu/ops/orientation.py (_hist_bins,
 (csrc/ori_hist.cu) for a CUDA tensor and runs `orientation_hist_plain`
 for a CPU tensor. Both return `hist` of calcOrientationHist
 (src/sift.cpp:389-458) before smoothing, with the per-sample arithmetic
-of the plain version; they differ only in the order of the sums.
+of the plain version. The kernel sums integers at a per-keypoint
+power-of-two scale (csrc/hist_common.cuh), so its bits depend neither on
+the order of the sums nor on `cluster_size`; it differs from the plain
+version by that version's float summation order and by at most half a
+unit of that scale per sample and bin. The scale comes from the largest
+finite gradient component of the keypoint's box, so a finite outlier
+that the kernel does not bin, far above the gradients it does, coarsens
+the unit; a NaN or an infinity that it does not bin never touches the
+row. A binned sample whose value is not finite makes the kernel's row
+all NaN, where the plain version's row holds a NaN or an infinity
+(0 * NaN and 0 * inf in its one-hot product).
 A sample counts where its row lies strictly inside (row_lo, row_hi - 1),
 (0, h) by default: a row band of a larger image passes the local rows
 of the image's own edges (`row_window`).
@@ -15,10 +25,13 @@ of the image's own edges (`row_window`).
 One call takes one frame, an (L, Hp, Wp) stack with (N,) keypoint
 arguments, or B frames, a (B, L, Hp, Wp) stack with (B, N) arguments:
 one launch for all B·N keypoints over the (B·L, Hp, Wp) stack, each
-keypoint's layer clamped inside its own frame (`stack_layer`).
+keypoint's layer clamped inside its own frame (`stack_layer`). Each
+keypoint takes a thread block cluster of `cluster_size` CTAs.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -28,6 +41,23 @@ from sift_tpu_torch.ops.mathutil import fast_atan2_deg, cv_round
 from sift_tpu_torch.ops.ori_gather_cuda import gather_patches_plain
 
 _KERNEL_BINS = 36     # csrc/ori_hist.cu: kBins
+_MAX_CLUSTER = 8      # csrc/hist_common.cuh: kMaxCluster
+_CTAS_PER_SM = 2      # cluster_size: the least CTAs a launch gives an SM
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def cluster_size(n: int, device: torch.device) -> int:
+    """CTAs per keypoint (1.._MAX_CLUSTER) for a K3-ori or K3-desc launch
+    of n keypoints on a card: the fewest that give the launch
+    _CTAS_PER_SM CTAs for each of the card's SMs, so that an octave with
+    few keypoints still spreads over the card. Only the time depends on
+    it, never the result."""
+    want = _CTAS_PER_SM * _sm_count(device)
+    return max(1, min(_MAX_CLUSTER, -(-want // max(n, 1))))
 
 
 def check_frames(padded, pad: int, *kp_args) -> None:
@@ -162,8 +192,8 @@ def orientation_hist(padded: torch.Tensor, layer: torch.Tensor,
                      row_bounds=None) -> torch.Tensor:
     """K3-ori: raw orientation histograms (arguments and result as
     orientation_hist_plain). CPU tensors take the plain version; CUDA
-    tensors launch the kernel once for all frames, one block per
-    keypoint."""
+    tensors launch the kernel once for all frames, a cluster of
+    cluster_size CTAs per keypoint."""
     _check_args(padded, layer, r, c, radius, expf_scale, cfg)
     if padded.device.type == "cpu":
         return orientation_hist_plain(padded, layer, r, c, radius,
@@ -182,8 +212,8 @@ def orientation_hist(padded: torch.Tensor, layer: torch.Tensor,
     expf_scale = expf_scale.to(device=padded.device,
                                dtype=torch.float32).reshape(-1).contiguous()
     nlay, hp, wp = stack.shape
-    row_lo, row_hi = row_window(row_bounds,
-                                hp - 2 * (cfg.ori_patch_radius + 1))
+    rp = cfg.ori_patch_radius
+    row_lo, row_hi = row_window(row_bounds, hp - 2 * (rp + 1))
     n = layer.shape[0]
     out = torch.empty((n, _KERNEL_BINS), dtype=torch.float32,
                       device=padded.device)
@@ -191,7 +221,8 @@ def orientation_hist(padded: torch.Tensor, layer: torch.Tensor,
         err = _build.library().sift_ori_hist(
             stack.data_ptr(), layer.data_ptr(), r.data_ptr(), c.data_ptr(),
             radius.data_ptr(), expf_scale.data_ptr(), out.data_ptr(), n, nb,
-            nlay, hp, wp, cfg.ori_patch_radius, row_lo, row_hi,
+            nlay, hp, wp, rp, row_lo, row_hi,
+            cluster_size(n, padded.device),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sift_ori_hist")
     orientation_hist.launches += 1

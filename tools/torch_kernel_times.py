@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K1-batch, K2, K2-batch and K4 kernels and its
-candidate selection, as their wrappers launch them, in one or more
+"""Time the port's K1, K1-batch, K2, K2-batch, K3-ori, K3-desc and K4
+kernels and its candidate selection, as their wrappers launch them, in
+one or more
 checkouts of the repository, in turns, with one timing method for all
 of them.
 
@@ -22,6 +23,12 @@ way is still timed the same way here. Each process times:
     of detect_object and top_candidates_batch at every octave of the
     batch step, whatever the tree launches for it (before the compact
     scan: the dense K2, a stable sort of the scores and the decode);
+  - K3-ori and K3-desc at every launch of the scene's and the object's
+    detect_and_compute (one each per usable octave) and of the batch
+    step's detect_and_compute_batch (one each per octave for the 8
+    frames), on the arguments those calls hand the wrappers (captured
+    from the calls), each also with its plain version's device time
+    (plain_ms, 3 runs) and its bound (chip_smoke.hist_bound);
 each with
   - device_ms: chip_smoke.median_ms, each of 20 calls queued behind a
     spin kernel, so the events time the device's work only;
@@ -75,6 +82,51 @@ def _sums(rows) -> dict:
     return {k: sum(r[k] for r in rows) for k in METHODS}
 
 
+def hist_launches(fn) -> list:
+    """Run fn() and return (name, wrapper arguments) of every K3-ori and
+    K3-desc call it makes, in order: the wrappers, as ops/orientation.py
+    and ops/descriptor.py call them, are replaced by recorders for the
+    call."""
+    from sift_tpu_torch.ops import descriptor, orientation
+    calls = []
+    saved = orientation.orientation_hist, descriptor.descriptor_hist
+
+    def recorder(name, wrapper):
+        def record(*args):
+            calls.append((name, args))
+            return wrapper(*args)
+        return record
+
+    orientation.orientation_hist = recorder("K3-ori", saved[0])
+    descriptor.descriptor_hist = recorder("K3-desc", saved[1])
+    try:
+        fn()
+    finally:
+        orientation.orientation_hist, descriptor.descriptor_hist = saved
+    return calls
+
+
+def hist_rows(cs, calls, where) -> list:
+    """Times of each captured K3 call under the tree's own wrapper and
+    plain version, with its bound."""
+    from sift_tpu_torch.ops.descr_hist_cuda import (descriptor_hist,
+                                                    descriptor_hist_plain)
+    from sift_tpu_torch.ops.ori_hist_cuda import (orientation_hist,
+                                                  orientation_hist_plain)
+    fns = {"K3-ori": (orientation_hist, orientation_hist_plain),
+           "K3-desc": (descriptor_hist, descriptor_hist_plain)}
+    rows, octave = [], {"K3-ori": 0, "K3-desc": 0}
+    for name, args in calls:
+        fn, plain = fns[name]
+        row = _times(cs, f"{where} octave {octave[name]}",
+                     tuple(args[1].shape), lambda a=args: fn(*a))
+        row["plain_ms"] = cs.median_ms(lambda a=args: plain(*a), runs=3)
+        row["bound_ms"], row["bound_by"] = cs.hist_bound(name, args)
+        octave[name] += 1
+        rows.append((name, row))
+    return rows
+
+
 def worker(tree: pathlib.Path) -> dict:
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("timing_smoke",
@@ -83,7 +135,7 @@ def worker(tree: pathlib.Path) -> dict:
     spec.loader.exec_module(cs)
     import numpy as np
     import torch
-    from sift_tpu_torch import _build
+    from sift_tpu_torch import _build, sift
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
     from sift_tpu_torch.ops import extrema as ext
     from sift_tpu_torch.ops import pyramid
@@ -133,6 +185,20 @@ def worker(tree: pathlib.Path) -> dict:
     sel = (select_rows("scene", ext.top_candidates)
            + select_rows("object", ext.top_candidates))
     selb = select_rows("batch", ext.top_candidates_batch)
+    k3 = (hist_rows(cs, hist_launches(
+              lambda: sift.detect_and_compute(img, cfg)), "scene")
+          + hist_rows(cs, hist_launches(
+              lambda: sift.detect_and_compute(obj, cfg)), "object"))
+    k3b = hist_rows(cs, hist_launches(
+        lambda: sift.detect_and_compute_batch(frames, cfg)), "batch")
+    k3_out = {}
+    for name in ("K3-ori", "K3-desc"):
+        mine = [r for n_, r in k3 if n_ == name]
+        mine_b = [r for n_, r in k3b if n_ == name]
+        k3_out[name] = mine
+        k3_out[f"{name} batch"] = mine_b
+        k3_out[f"{name}_per_detect_object"] = _sums(mine)
+        k3_out[f"{name}_per_batch_step"] = _sums(mine_b)
     d0, db0 = dogs["scene"][0], dogs["batch"][0]
     k2 = _times(cs, "scene octave 0", d0.shape,
                 lambda: ext.extrema_scores(d0, cfg))
@@ -144,11 +210,16 @@ def worker(tree: pathlib.Path) -> dict:
             "K1_per_detect_object": _sums(k1),
             "K1-batch_per_batch_step": _sums(k1b),
             "selection_per_detect_object": _sums(sel),
-            "selection_per_batch_step": _sums(selb),
+            "selection_per_batch_step": _sums(selb), **k3_out,
             "main": {"K1": k1[1], "K1-batch": k1b[1], "K4": k4, "K2": k2,
                      "K2-batch": k2b,
                      "selection_per_detect_object": _sums(sel),
-                     "selection_per_batch_step": _sums(selb)}}
+                     "selection_per_batch_step": _sums(selb),
+                     "K3-ori": k3_out["K3-ori"][0],
+                     "K3-desc": k3_out["K3-desc"][0],
+                     "K3-ori batch": k3_out["K3-ori batch"][0],
+                     "K3-desc batch": k3_out["K3-desc batch"][0],
+                     **{k: v for k, v in k3_out.items() if "_per_" in k}}}
 
 
 def main() -> int:
@@ -174,7 +245,10 @@ def main() -> int:
     if runs is None:
         return 1
     keys = ("K1", "K1-batch", "K4", "K2", "K2-batch",
-            "selection_per_detect_object", "selection_per_batch_step")
+            "selection_per_detect_object", "selection_per_batch_step",
+            "K3-ori", "K3-desc", "K3-ori batch", "K3-desc batch",
+            "K3-ori_per_detect_object", "K3-desc_per_detect_object",
+            "K3-ori_per_batch_step", "K3-desc_per_batch_step")
     summary = {tree: {k: {m: [r["main"][k][m] for r in runs
                               if r["tree"] == tree] for m in METHODS}
                       for k in keys}
