@@ -965,6 +965,34 @@ def select_bound(frames: int, n: int, cap: int) -> tuple:
     return bound_ms(8.0 * n + 4.0 * frames + 13.0 * frames * cap, 0.0)
 
 
+def synthetic_keys(rng, counts, total: int, tied: bool = False):
+    """(B, total) int64 key lists and their (B,) counts, as the compact
+    scan leaves them: frame b's counts[b] candidates at distinct flat
+    indices, random scores (or one score for all: keys that differ only
+    in their index bits), in a shuffled order, then zeros."""
+    keys = np.zeros((len(counts), total), np.int64)
+    for b, n in enumerate(counts):
+        idx = rng.choice(total, n, replace=False).astype(np.uint64)
+        score = (np.full(n, 20.0) if tied else rng.uniform(1.0, 50.0, n)
+                 ).astype(np.float32)
+        bits = score.view(np.uint32).astype(np.uint64)
+        keys[b, :n] = ((bits << np.uint64(32))
+                       | (np.uint64(0xFFFFFFFF) - idx)).astype(np.int64)
+    return keys, np.array(counts, np.int32)
+
+
+def select_edge_counts(cap: int, ctas: int, stage: int, threads: int):
+    """Counts where the rank select's partition changes at a launch
+    shape: none, one, a slice of one, 32 and `threads` keys a CTA and
+    their neighbours, cap and its neighbours, stage and one more (the
+    first list whose kept keys the CTAs pack)."""
+    counts = {0, 1, ctas - 1, ctas, ctas + 1, cap - 1, cap, cap + 1, stage,
+              stage + 1}
+    for per in (32, threads):
+        counts |= {ctas * per - 1, ctas * per, ctas * per + 1}
+    return sorted(c for c in counts if c >= 0)
+
+
 def phase_select(dogs, dogs_obj, dogsb, record) -> None:
     """Phase 2, the fused selection: K2's compact scan and the select
     kernel, as top_candidates / top_candidates_batch launch them, against
@@ -975,21 +1003,26 @@ def phase_select(dogs, dogs_obj, dogsb, record) -> None:
     kernel against its own plain version; the route once more with
     torch.sort removed and host synchronisation an error; then both
     kernels timed at every octave, with sums per detect_object and per
-    batch step. The JSON rows' max_abs_err is the largest difference
-    from the plain versions at the 1080p octave 0: over the sorted key
-    lists and counts (compact scan) and over layer, r, c and valid
-    (select)."""
+    batch step, each select time beside the launch floor of its launch
+    shape (an empty kernel, extrema_cuda.select_floor). The JSON rows'
+    max_abs_err is the largest difference from the plain versions at the
+    1080p octave 0: over the sorted key lists and counts (compact scan)
+    and over layer, r, c and valid (select)."""
     import dataclasses
+    import pathlib
+    import re
 
     import torch
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
     from sift_tpu_torch.ops import extrema as ext
+    from sift_tpu_torch.ops import extrema_cuda
     from sift_tpu_torch.ops.extrema_cuda import (extrema_compact,
                                                  extrema_compact_plain,
                                                  extrema_scores,
                                                  extrema_scores_plain,
                                                  select_candidates,
-                                                 select_candidates_plain)
+                                                 select_candidates_plain,
+                                                 select_floor)
     nl = cfg.n_octave_layers
 
     def same(got, want):
@@ -1047,6 +1080,7 @@ def phase_select(dogs, dogs_obj, dogsb, record) -> None:
     batch = [(f"batch octave {o}", d.contiguous(), cfg.detect_caps[o])
              for o, d in enumerate(dogsb)]
     rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, dog, cap in launches + batch:
         counts = check_route(label, dog, cap)
         d4 = dog if dog.dim() == 4 else dog[None]
@@ -1054,20 +1088,27 @@ def phase_select(dogs, dogs_obj, dogsb, record) -> None:
         hw = tuple(dog.shape[-2:])
         ms_c = median_ms(lambda: extrema_compact(d4, cfg))
         ms_s = median_ms(lambda: select_candidates(keys, count, cap, hw))
+        floor = median_ms(lambda: select_floor(d4.shape[0], cap, nl, hw,
+                                               d4.device))
         bc = compact_bound(d4.shape, sum(counts), nl)
         bs = select_bound(d4.shape[0], sum(counts), cap)
-        rows[label] = (d4, keys, count, cap, counts, ms_c, ms_s, bc, bs)
+        rows[label] = (d4, keys, count, cap, counts, ms_c, ms_s, bc, bs,
+                       floor)
+        shape = extrema_cuda.select_shape(cap, nl * hw[0] * hw[1],
+                                          d4.shape[0], sms)
         print(f"phase 2 K2 fused selection {label} {tuple(dog.shape)} "
               f"cap={cap}: candidates={counts} equal to "
               f"top_candidates_plain{' (each row the single frame)' if dog.dim() == 4 else ''}; "
               f"compact scan {ms_c:.4f} ms (bound {bc[0]:.4f}, {bc[1]}), "
-              f"select {ms_s:.4f} ms (bound {bs[0]:.4f}, {bs[1]})")
+              f"select {ms_s:.4f} ms ({shape[0]} CTAs a frame; bound "
+              f"{bs[0]:.5f}, {bs[1]}; launch floor {floor:.4f})")
     for what, labels in (("detect_object", [x[0] for x in launches]),
                          ("batch step", [x[0] for x in batch])):
         sel = [rows[k] for k in labels]
         print(f"phase 2 K2 fused selection per {what} ({len(sel)} octaves): "
               f"compact scan {sum(r[5] for r in sel):.4f} ms, select "
-              f"{sum(r[6] for r in sel):.4f} ms, together "
+              f"{sum(r[6] for r in sel):.4f} ms (launch floors "
+              f"{sum(r[9] for r in sel):.4f}), together "
               f"{sum(r[5] + r[6] for r in sel):.4f} ms; bound "
               f"{sum(r[7][0] + r[8][0] for r in sel):.4f} ms")
 
@@ -1109,6 +1150,63 @@ def phase_select(dogs, dogs_obj, dogsb, record) -> None:
                       extrema_scores_plain(deep, deep_cfg)),
           "K2 at nL 8 is not bit-identical to its plain version")
 
+    # B = 8 with one frame empty and frames over and under their cap
+    mixed = dogsb[2].contiguous().clone()
+    mixed[3].zero_()
+    n_mixed = check_route("batch octave 2, frame 3 empty, cap 615", mixed,
+                          615)
+    check(n_mixed[3] == 0 and min(n_mixed[:3] + n_mixed[4:]) < 615 <
+          max(n_mixed), f"the mixed batch has counts {n_mixed}")
+
+    def check_lists(label, keys_np, counts_np, cap, hw):
+        """The select on synthetic key lists against its plain version
+        under torch.equal, and each row against the single-frame call."""
+        keys = torch.from_numpy(keys_np).to(d0.device)
+        count = torch.from_numpy(counts_np).to(d0.device)
+        got = select_candidates(keys, count, cap, hw)
+        check(same(got, select_candidates_plain(keys, count, cap, hw)),
+              f"select on {label} differs from its plain version")
+        if keys.shape[0] > 1:
+            for b in range(keys.shape[0]):
+                one = select_candidates(keys[b:b + 1], count[b:b + 1], cap,
+                                        hw)
+                check(same((a[b:b + 1] for a in got), one),
+                      f"select on {label}: row {b} differs from the "
+                      f"single-frame call")
+
+    # n at the launch shape's edges: slices of 1, 32 and kSelThreads keys
+    # a CTA and one more or less, cap +- 1, stage and stage + 1 (the
+    # kept keys packed), at the 1080p octave 0's shape for one frame and
+    # for the batch step's 8; and a tied list past stage
+    src = (pathlib.Path(extrema_cuda.__file__).resolve().parent.parent
+           / "csrc" / "extrema.cu").read_text()
+    threads = int(re.search(r"constexpr int kSelThreads = (\d+);",
+                            src).group(1))
+    hw0 = tuple(d0.shape[-2:])
+    total0 = nl * hw0[0] * hw0[1]
+    cap0 = cfg.detect_caps[0]
+    rng = np.random.default_rng(12)
+    shape1 = extrema_cuda.select_shape(cap0, total0, 1, sms)
+    edges = select_edge_counts(cap0, *shape1, threads)
+    for n in edges:
+        check_lists(f"{n} keys", *synthetic_keys(rng, [n], total0), cap0,
+                    hw0)
+    shape8 = extrema_cuda.select_shape(cap0, total0, BATCH, sms)
+    edges8 = select_edge_counts(cap0, *shape8, threads)
+    for k in range(0, len(edges8), BATCH):
+        part = (edges8[k:k + BATCH] + [1103] * BATCH)[:BATCH]
+        check_lists(f"a batch of {part} keys",
+                    *synthetic_keys(rng, part, total0), cap0, hw0)
+    check_lists("a tied list past stage",
+                *synthetic_keys(rng, [shape1[1] + 999], total0, tied=True),
+                cap0, hw0)
+    print(f"phase 2 K2 select at the launch shape's edges (cap {cap0}, "
+          f"{shape1[0]} CTAs a frame staging {shape1[1]} keys; the batch "
+          f"step's {shape8[0]}): n in {edges} one frame, {edges8} in "
+          f"batches of {BATCH} (each row the single frame), a tied list "
+          f"of {shape1[1] + 999}; B = 8 with frame 3 empty and counts "
+          f"{n_mixed} at cap 615: all equal to select_candidates_plain")
+
     # the route once more: no torch.sort, no host synchronisation
     torch.cuda.synchronize()
     real_sort = torch.sort
@@ -1138,7 +1236,8 @@ def phase_select(dogs, dogs_obj, dogsb, record) -> None:
           f"'error': no sort, no host sync")
 
     # JSON rows: the 1080p scene's octave 0
-    d4, keys, count, cap, counts, ms_c, ms_s, bc, bs = rows["scene octave 0"]
+    d4, keys, count, cap, counts, ms_c, ms_s, bc, bs, _ = rows[
+        "scene octave 0"]
     err_c, err_s = errs["scene octave 0"]
     record("K2-compact", "K2 compact extremum scan (candidate keys)",
            "sift_tpu_torch/csrc/extrema.cu",

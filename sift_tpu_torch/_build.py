@@ -43,9 +43,13 @@ _SIGNATURES = {
     # (the candidate box), stream
     "sift_extrema_compact": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                              _I, _P),
-    # keys, count, scratch, layer, row, col, valid, B, cap, nl, H, W, stream
+    # keys, count, scratch, layer, row, col, valid, B, cap, nl, H, W,
+    # ctas (CTAs a frame), stage (keys a CTA stages), stream
     "sift_extrema_select": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _P),
+                            _I, _I, _P),
+    # B, cap, nl, H, W, ctas, stage, stream: an empty kernel launched with
+    # the select's shape (its launch floor; measurement only)
+    "sift_extrema_select_floor": (_I, _I, _I, _I, _I, _I, _I, _P),
     "sift_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # src, layer, row, col, radius, expf_scale, out, N, B (frames), L,
     # Hp, Wp, rp, row_lo, row_hi (the image's rows), cluster (CTAs a

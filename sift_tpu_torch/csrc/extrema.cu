@@ -27,23 +27,59 @@
 //     Scores are > 0, so their bits order like the floats; keys are
 //     unique, and the larger key is the earlier slot of a stable
 //     descending sort of the scores (ties keep the lower index first).
-// The select kernel (sift_extrema_select), one block per frame, then
-// takes the top `cap` keys without the host: it reads the frame's count
-// n on the device; if n > cap it radix-selects the cap-th largest key
-// (8-bit digit histograms in shared memory, integer atomics only) and
-// keeps the keys at or above it, one shared atomic per warp; it sorts the
-// kept keys in shared memory (bitonic, a thread per compare-exchange
-// pair) and writes (layer, r, c, valid) as a stable sort of the dense
-// field would give them: slots n..cap-1 take the lowest flat indices
-// whose score is -1, ascending (the candidates' indices sorted and merged
-// with the gaps when a candidate lies among them), and slots past
-// nL*H*W take (1, 0, 0, false). This replaces a sort of the whole dense
-// field (4,147,200 scores per 1080p frame) of which ~1e-4 are
-// candidates. The select runs as one block a frame; at a 1080p octave 0
-// its bitonic steps are bound by shared-memory bandwidth (64-bit keys, a
-// barrier a step). Up to 16384 slots (min(cap, nL*H*W)) sort in shared
-// memory; more sort the same way in a device-memory scratch the caller
-// passes, slower but with no limit on cap.
+// The select kernel (sift_extrema_select) then takes the top `cap` keys
+// of each frame without the host, and writes (layer, r, c, valid) as a
+// stable descending sort of the dense field would give them: slots
+// 0..m-1 (m = min(n, cap)) the m largest keys, slots m..cap-1 the lowest
+// flat indices whose score is -1, ascending, and slots past nL*H*W
+// (1, 0, 0, false). This replaces sift_tpu's top-k
+// (sift_tpu/ops/extrema.py:214) over the Pallas scores of
+// extrema_pallas.py:160,167: a sort of the whole dense field (4,147,200
+// scores per 1080p frame) of which ~1e-4 are candidates.
+//
+// What bounds the select on the H100: not bytes (n keys in, 13 bytes a
+// slot out: 0.00002 ms at the 1080p octave 0) but the latency of a
+// chain of dependent steps, each a trip to memory or a barrier. The
+// one-block bitonic network it replaces spent 68 % of its 0.0260 ms
+// there (66 barriers at n = 1,103; PERF.md). The design keeps the
+// chain short and spreads the work over the card:
+//   - a grid of `ctas` CTAs per frame (x) and B frames (y), the count
+//     chosen by the host from B, cap and the SM count
+//     (ops/extrema_cuda.select_shape: two CTAs an SM, at most one for
+//     each 32 slots). Every CTA reads the count and stages the frame's
+//     keys (up to `stage` of them) in its own shared memory; CTAs never
+//     talk to each other;
+//   - no sort network: a key's slot is its rank, the number of staged
+//     keys larger than it (keys are unique). CTA g ranks the g-th slice
+//     of the staged list against the whole list, each thread two keys of
+//     the slice in registers over a part of the list read by broadcast,
+//     16 bytes a load; the parts' counts meet in shared memory behind
+//     one barrier, and where a thread counts whole ranks (a short list,
+//     or a long slice) it writes its keys' slots at once. One barrier
+//     before the ranks where n <= stage, and nothing but the count read
+//     and the staging before it. No integer division splits the work
+//     (only the slots' decode divides): shifts (chunk_of) and float
+//     quotients that are exact at these sizes (small_quotient) do, since
+//     the divisions' latency showed at the small octaves;
+//   - where n > cap, a staged key ranked cap or more is dropped; past
+//     `stage` keys every CTA first finds the cap-th largest key by a
+//     radix select over device memory (8-bit digit histograms, integer
+//     atomics) and packs the kept keys into shared memory in an order
+//     every CTA computes alike (each thread's kept keys at an exclusive
+//     prefix sum of the counts);
+//   - gap slots, written before the ranks are counted so that their
+//     stores drain meanwhile: where no candidate lies among the first
+//     cap - m indices, slot m + j is index j; else a bitmap of the
+//     candidates below min(cap, nL*H*W) and a prefix sum of its zero
+//     bits give each free index its slot. The gap and padding slots split
+//     evenly over the frame's CTAs, neighbouring threads on neighbouring
+//     slots.
+// The staged list is the frame's keys in list order (or the packed
+// order past `stage`), the same in every CTA, so the slices partition
+// the keys and every slot is written once. Up to 16384 slots (min(cap,
+// nL*H*W); kMaxSharedKeys) the select runs so; more take a one-block
+// bitonic network in a device-memory scratch the caller passes, slower
+// but with no limit on cap.
 //
 // What bounds the scan on the H100: device-memory traffic. Compact mode
 // reads the nL + 2 planes once (33 MB at 1920x1080 with nL = 2; 0.0099 ms
@@ -89,9 +125,11 @@ constexpr int kPad = 4;        // staged columns each side (halo 1, 16 B)
 constexpr int kPitch = kTileW + 2 * kPad;
 constexpr int kStagedRows = kTileH + 2;
 constexpr int kMaxLayers = 6;  // nL; the block stages nL + 2 planes
-constexpr int kMaxSelThreads = 1024;
-// slots a select block sorts in shared memory (128 KB); more sort in a
-// device-memory scratch
+constexpr int kMaxSelThreads = 1024;   // the scratch network's block
+constexpr int kSelThreads = 256;       // a rank-select CTA
+constexpr int kSelWarps = kSelThreads / 32;
+// most slots (and staged keys) a rank-select CTA holds in shared memory
+// (128 KB); more sort in a device-memory scratch
 constexpr int kMaxSharedKeys = 16384;
 constexpr int kMaxDevices = 64;
 
@@ -359,26 +397,23 @@ __device__ __forceinline__ void write_slot(int* layer, int* row, int* col,
   valid[slot] = ok;
 }
 
-// One block per frame b: the keys key[b * nl * H * W + 0 .. count[b])
-// -> layer, row, col, valid (B, cap), the slots of a stable descending
-// sort of the frame's dense scores (ops/extrema.py:_decode). The block
-// has a whole number of warps, at least one. kShared: the kept keys sort
-// in shared memory, else in scratch + b * sort_keys; sort_keys is the
-// power of two at or above min(cap, nl * H * W).
-template <bool kShared>
+// The scratch path, past kMaxSharedKeys slots: one block per frame b
+// sorts the kept keys of key[b * nl * H * W + 0 .. count[b]) with the
+// bitonic network in scratch + b * sort_keys (sort_keys the power of two
+// at or above min(cap, nl * H * W)) and writes layer, row, col, valid
+// (B, cap) as the rank select does. The block has a whole number of
+// warps, at least one.
 __global__ void __launch_bounds__(kMaxSelThreads)
-select_kernel(const unsigned long long* __restrict__ keys,
-              const int* __restrict__ count,
-              unsigned long long* __restrict__ scratch,
-              int* __restrict__ layer, int* __restrict__ row,
-              int* __restrict__ col, bool* __restrict__ valid, int cap, int nl,
-              int H, int W, unsigned sort_keys) {
-  extern __shared__ unsigned long long smem_keys[];  // sort_keys
+network_select_kernel(const unsigned long long* __restrict__ keys,
+                      const int* __restrict__ count,
+                      unsigned long long* __restrict__ scratch,
+                      int* __restrict__ layer, int* __restrict__ row,
+                      int* __restrict__ col, bool* __restrict__ valid,
+                      int cap, int nl, int H, int W, unsigned sort_keys) {
   __shared__ int s_m;
   __shared__ unsigned s_min;
   const int b = blockIdx.x, tid = threadIdx.x;
-  unsigned long long* sk =
-      kShared ? smem_keys : scratch + (size_t)b * sort_keys;
+  unsigned long long* sk = scratch + (size_t)b * sort_keys;
   const unsigned hw = (unsigned)H * (unsigned)W;
   const long long total = (long long)nl * hw;
   const unsigned long long* key = keys + (size_t)b * total;
@@ -458,6 +493,231 @@ select_kernel(const unsigned long long* __restrict__ keys,
     write_slot(layer, row, col, valid, q, 0u, hw, W, false);
 }
 
+// Exclusive prefix sum of each thread's v over a kSelThreads block, in
+// thread order; every thread calls it. sums: kSelWarps words of shared
+// memory, free again when it returns.
+__device__ __forceinline__ unsigned block_exclusive_sum(unsigned v,
+                                                        unsigned* sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned incl = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned t = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += t;
+  }
+  if (lane == 31) sums[warp] = incl;
+  __syncthreads();
+  unsigned base = 0;
+  for (int w = 0; w < warp; ++w) base += sums[w];
+  __syncthreads();
+  return base + incl - v;
+}
+
+// The part [lo, hi) of `span` items that CTA g takes, of G CTAs with
+// 2^lg <= G < 2^(lg + 1): contiguous chunks of span / 2^lg + 1 items,
+// the first 2^lg CTAs covering the span, with a shift and no division.
+__device__ __forceinline__ void chunk_of(int span, int g, int lg, int* lo,
+                                         int* hi) {
+  const int per = (span >> lg) + 1;
+  *lo = min(g * per, span);
+  *hi = min(*lo + per, span);
+}
+
+// floor(a / b) for 0 <= a < 2^16 and b >= 1, without an integer
+// division: (a + 0.5) / b has the same floor and lies more than 2^-17 of
+// its value from an integer, far beyond the float quotient's error.
+__device__ __forceinline__ int small_quotient(int a, int b) {
+  return static_cast<int>(__fdividef(a + 0.5f, static_cast<float>(b)));
+}
+
+// c0 += the number of the keys of staged[y0, y1) larger than x0, c1
+// the same for x1; staged is 16-byte aligned, and every thread of a warp
+// reads the same keys.
+__device__ __forceinline__ void count_above(
+    const unsigned long long* staged, int y0, int y1, unsigned long long x0,
+    unsigned long long x1, unsigned& c0, unsigned& c1) {
+  int k = y0;
+  if (k < y1 && (k & 1)) {
+    c0 += staged[k] > x0;
+    c1 += staged[k] > x1;
+    ++k;
+  }
+  const ulonglong2* pair = reinterpret_cast<const ulonglong2*>(staged + k);
+#pragma unroll 4
+  for (; k + 1 < y1; k += 2) {
+    const ulonglong2 v = *pair++;
+    c0 += (v.x > x0) + (v.y > x0);
+    c1 += (v.x > x1) + (v.y > x1);
+  }
+  if (k < y1) {
+    c0 += staged[k] > x0;
+    c1 += staged[k] > x1;
+  }
+}
+
+// CTA blockIdx.x of the gridDim.x CTAs of frame blockIdx.y: the keys
+// key[frame * nl * H * W + 0 .. count[frame]) -> its share of layer,
+// row, col, valid (B, cap), the slots of a stable descending sort of the
+// frame's dense scores (ops/extrema.py:_decode). Dynamic shared memory:
+// `stage` keys, then two words per 32 slots of min(cap, nl * H * W) <=
+// stage.
+__global__ void __launch_bounds__(kSelThreads)
+rank_select_kernel(const unsigned long long* __restrict__ keys,
+                   const int* __restrict__ count, int* __restrict__ layer,
+                   int* __restrict__ row, int* __restrict__ col,
+                   bool* __restrict__ valid, int cap, int nl, int H, int W,
+                   int stage) {
+  extern __shared__ __align__(16) unsigned long long staged[];
+  __shared__ unsigned sums[kSelWarps];
+  __shared__ unsigned partial[2 * kSelThreads];   // ranks' parts
+  const int frame = blockIdx.y, g = blockIdx.x;
+  const int lg = 31 - __clz(gridDim.x);   // chunk_of's shift
+  const int tid = threadIdx.x;
+  const unsigned hw = (unsigned)H * (unsigned)W;
+  const long long total = (long long)nl * hw;
+  const int slots = (int)(total < cap ? total : cap);
+  const int words = (slots + 31) / 32;
+  unsigned* bits = reinterpret_cast<unsigned*>(staged + stage);
+  unsigned* zeros = bits + words;   // free indices before each word
+  const unsigned long long* key = keys + (size_t)frame * total;
+  const int n = count[frame];
+  layer += (size_t)frame * cap;
+  row += (size_t)frame * cap;
+  col += (size_t)frame * cap;
+  valid += (size_t)frame * cap;
+  const int m = n < cap ? n : cap;
+  const int gaps = slots - m;   // n <= nl * H * W, so m <= slots
+
+  // stage the list (past `stage` keys: only the kept ones, below)
+  bool low = false;   // a candidate among the first `gaps` indices
+  if (n <= stage) {
+    for (int q = tid; q < n; q += kSelThreads) {
+      const unsigned long long x = key[q];
+      staged[q] = x;
+      low |= 0xFFFFFFFFu - (unsigned)x < (unsigned)gaps;
+    }
+  }
+  if (gaps > 0)
+    for (int w = tid; w < words; w += kSelThreads) bits[w] = 0u;
+  const bool general = __syncthreads_or(low);
+  const int ny = n <= stage ? n : cap;
+
+  if (n > stage) {
+    // the cap-th largest key, then the kept keys packed: thread t's in
+    // list order, at the sum of the counts of threads 0..t-1, so every
+    // CTA packs them alike
+    const unsigned long long lowest = radix_threshold(key, n, cap);
+    unsigned c = 0;
+    for (int q = tid; q < n; q += kSelThreads) c += key[q] >= lowest;
+    unsigned at = block_exclusive_sum(c, sums);
+    for (int q = tid; q < n; q += kSelThreads) {
+      const unsigned long long x = key[q];
+      if (x >= lowest) staged[at++] = x;
+    }
+    __syncthreads();
+  }
+
+  // the gap and padding slots first: their stores drain while the ranks
+  // are counted
+  int q0, q1;
+  if (!general) {
+    // slots m .. cap - 1: index q - m below `slots`, 0 past the field
+    chunk_of(cap - m, g, lg, &q0, &q1);
+    for (int q = m + q0 + tid; q < m + q1; q += kSelThreads)
+      write_slot(layer, row, col, valid, q, q < slots ? (unsigned)(q - m) : 0u,
+                 hw, W, false);
+  } else {
+    // slot m + j: the j-th zero bit of the candidates' bitmap over
+    // [0, slots), which holds at least `gaps` zeros
+    for (int k = tid; k < ny; k += kSelThreads) {
+      const unsigned i = 0xFFFFFFFFu - (unsigned)staged[k];
+      if (i < (unsigned)slots) atomicOr(bits + (i >> 5), 1u << (i & 31));
+    }
+    __syncthreads();
+    const int per = (words + kSelThreads - 1) / kSelThreads;
+    const int w0 = min(tid * per, words), w1 = min(w0 + per, words);
+    unsigned z = 0;
+    for (int w = w0; w < w1; ++w) z += 32 - __popc(bits[w]);
+    unsigned before = block_exclusive_sum(z, sums);
+    for (int w = w0; w < w1; ++w) {
+      zeros[w] = before;
+      before += 32 - __popc(bits[w]);
+    }
+    __syncthreads();
+    chunk_of(words, g, lg, &q0, &q1);
+    for (int i = q0 * 32 + tid; i < min(q1 * 32, slots); i += kSelThreads) {
+      const unsigned word = bits[i >> 5], bit = i & 31;
+      if ((word >> bit) & 1u) continue;
+      const unsigned j = zeros[i >> 5] + __popc(~word & ((1u << bit) - 1u));
+      if (j < (unsigned)gaps)
+        write_slot(layer, row, col, valid, m + (int)j, (unsigned)i, hw, W,
+                   false);
+    }
+    // slots past the field, as _decode pads them: index 0, score -1
+    chunk_of(cap - slots, g, lg, &q0, &q1);
+    for (int q = slots + q0 + tid; q < slots + q1; q += kSelThreads)
+      write_slot(layer, row, col, valid, q, 0u, hw, W, false);
+  }
+
+  // rank: each key of this CTA's slice staged[lo, hi) against all ny
+  // staged keys; a rank below cap is a kept key's slot. A thread takes
+  // the keys i and i + np of the slice (np = ns / 2, rounded up; i + np
+  // may be past it, x1 = x0 then) over `parts` contiguous parts of the
+  // list of `len` keys each, 32 or more (any parts <= kSelThreads / np
+  // and len * parts >= ny cover the list)
+  int lo, hi;
+  chunk_of(ny, g, lg, &lo, &hi);
+  const int ns = hi - lo, np = (ns + 1) / 2;
+  if (ns == 0) return;   // alike for the whole CTA
+  const int parts =
+      np >= kSelThreads
+          ? 1
+          : max(1, min(small_quotient(kSelThreads, np), ny >> 5));
+  if (parts == 1) {
+    // whole ranks: a thread writes its keys' slots at once
+    for (int i = tid; i < np; i += kSelThreads) {
+      const int i1 = i + np < ns ? i + np : i;
+      const unsigned long long x0 = staged[lo + i], x1 = staged[lo + i1];
+      unsigned r0 = 0, r1 = 0;
+      count_above(staged, 0, ny, x0, x1, r0, r1);
+      if (r0 < (unsigned)cap)
+        write_slot(layer, row, col, valid, r0, 0xFFFFFFFFu - (unsigned)x0,
+                   hw, W, true);
+      if (i1 != i && r1 < (unsigned)cap)
+        write_slot(layer, row, col, valid, r1, 0xFFFFFFFFu - (unsigned)x1,
+                   hw, W, true);
+    }
+    return;
+  }
+  // parts of ranks: thread p * np + i counts part p for keys i and
+  // i + np into partial[tid] and partial[kSelThreads + tid]; after the
+  // barrier slice key j sums its parts
+  if (tid < np * parts) {
+    const int p = small_quotient(tid, np), i = tid - p * np;
+    const int i1 = i + np < ns ? i + np : i;
+    const int len = small_quotient(ny, parts) + 1;
+    const int y0 = min(p * len, ny), y1 = min(y0 + len, ny);
+    unsigned c0 = 0, c1 = 0;
+    count_above(staged, y0, y1, staged[lo + i], staged[lo + i1], c0, c1);
+    partial[tid] = c0;
+    partial[kSelThreads + tid] = c1;
+  }
+  __syncthreads();
+  if (tid < ns) {
+    const unsigned* from = tid < np ? partial + tid
+                                    : partial + kSelThreads + tid - np;
+    unsigned r = 0;
+    for (int p = 0; p < parts; ++p) r += from[p * np];
+    if (r < (unsigned)cap)
+      write_slot(layer, row, col, valid, r,
+                 0xFFFFFFFFu - (unsigned)staged[lo + tid], hw, W, true);
+  }
+}
+
+// An empty kernel: the launch floor of a select launch shape (measurement
+// only; no path launches it).
+__global__ void empty_kernel() {}
+
 // The power of two at or above slots (1 <= slots < 2^31).
 unsigned sort_size(long long slots) {
   unsigned n2 = 1;
@@ -465,8 +725,14 @@ unsigned sort_size(long long slots) {
   return n2;
 }
 
-// Once per device: raise the select kernel's dynamic shared memory limit
-// to its largest size.
+// Dynamic shared memory of a rank-select CTA (rank_select_kernel).
+size_t rank_select_smem(int stage, int slots) {
+  return sizeof(unsigned long long) * (size_t)stage +
+         sizeof(unsigned) * 2 * (size_t)((slots + 31) / 32);
+}
+
+// Once per device: raise the rank select's dynamic shared memory limit
+// to its largest size (kMaxSharedKeys staged keys, one CTA a frame).
 cudaError_t prepare_select() {
   static bool done[kMaxDevices];
   int dev = 0;
@@ -474,9 +740,14 @@ cudaError_t prepare_select() {
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!done[dev]) {
+    const int bytes =
+        (int)rank_select_smem(kMaxSharedKeys, kMaxSharedKeys);
     err = cudaFuncSetAttribute(
-        select_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(sizeof(unsigned long long) * sort_size(kMaxSharedKeys)));
+        rank_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(
+        empty_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     done[dev] = true;
   }
@@ -590,36 +861,61 @@ extern "C" int sift_extrema_compact(const float* dog,
 // Select: keys (B, nl * H * W) and count (B,) from sift_extrema_compact
 // -> layer, row, col (int32) and valid (bool), each (B, cap): the top
 // `cap` candidates of each frame, in the order of a stable descending
-// sort of its dense scores. cap >= 1. scratch: B * S keys, S the power
-// of two at or above min(cap, nl * H * W), where S is above 16384 (the
-// sort then runs in device memory); else unused and may be null.
+// sort of its dense scores. cap >= 1. Up to kMaxSharedKeys slots
+// (min(cap, nl * H * W)) a rank select of `ctas` CTAs a frame, each
+// staging up to `stage` keys (slots <= stage <= kMaxSharedKeys); the
+// wrapper picks both (ops/extrema_cuda.select_shape), and scratch is
+// unused and may be null. Past that, scratch: B * S keys, S the power of
+// two at or above min(cap, nl * H * W), where the bitonic network runs
+// in device memory, one block a frame; ctas and stage are then unused.
 extern "C" int sift_extrema_select(const unsigned long long* keys,
                                    const int* count,
                                    unsigned long long* scratch, int* layer,
                                    int* row, int* col, bool* valid, int B,
-                                   int cap, int nl, int H, int W,
-                                   void* stream_ptr) {
+                                   int cap, int nl, int H, int W, int ctas,
+                                   int stage, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B < 0 || B > 65535 || cap < 1 || nl < 1 || H < 1 || W < 1 ||
       !field_fits(nl, H, W))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const long long total = (long long)nl * H * W;
-  const unsigned n2 = sort_size(cap < total ? cap : total);
-  const bool shared = n2 <= (unsigned)kMaxSharedKeys;
-  if (!shared && scratch == nullptr) return cudaErrorInvalidValue;
-  // a thread for each compare-exchange pair of the largest sort
-  const int threads =
-      n2 / 2 < 64 ? 64 : (n2 / 2 > kMaxSelThreads ? kMaxSelThreads : n2 / 2);
-  if (shared) {
+  const int slots = (int)(cap < total ? cap : total);
+  if (slots <= kMaxSharedKeys) {
+    if (ctas < 1 || ctas > 65535 || stage < slots || stage > kMaxSharedKeys)
+      return cudaErrorInvalidValue;
     const cudaError_t err = prepare_select();
     if (err != cudaSuccess) return err;
-    select_kernel<true>
-        <<<B, threads, sizeof(unsigned long long) * n2, stream>>>(
-            keys, count, nullptr, layer, row, col, valid, cap, nl, H, W, n2);
-  } else {
-    select_kernel<false><<<B, threads, 0, stream>>>(
-        keys, count, scratch, layer, row, col, valid, cap, nl, H, W, n2);
+    rank_select_kernel<<<dim3(ctas, B), kSelThreads,
+                         rank_select_smem(stage, slots), stream>>>(
+        keys, count, layer, row, col, valid, cap, nl, H, W, stage);
+    return cudaGetLastError();
   }
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  // a thread for each compare-exchange pair of the largest sort
+  const unsigned n2 = sort_size(slots);
+  const int threads = n2 / 2 > kMaxSelThreads ? kMaxSelThreads : n2 / 2;
+  network_select_kernel<<<B, threads, 0, stream>>>(
+      keys, count, scratch, layer, row, col, valid, cap, nl, H, W, n2);
+  return cudaGetLastError();
+}
+
+// An empty kernel launched with the rank select's shape for these
+// arguments (grid ctas x B, kSelThreads threads, its dynamic shared
+// memory): the launch floor beside the select's time. No path calls it.
+extern "C" int sift_extrema_select_floor(int B, int cap, int nl, int H,
+                                         int W, int ctas, int stage,
+                                         void* stream_ptr) {
+  const long long total = (long long)nl * H * W;
+  const int slots = (int)(cap < total ? cap : total);
+  if (B < 1 || B > 65535 || cap < 1 || nl < 1 || H < 1 || W < 1 ||
+      !field_fits(nl, H, W) || ctas < 1 || ctas > 65535 || stage < slots ||
+      stage > kMaxSharedKeys)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = prepare_select();
+  if (err != cudaSuccess) return err;
+  empty_kernel<<<dim3(ctas, B), kSelThreads,
+                 rank_select_smem(stage, slots),
+                 static_cast<cudaStream_t>(stream_ptr)>>>();
   return cudaGetLastError();
 }

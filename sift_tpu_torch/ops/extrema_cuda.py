@@ -15,7 +15,8 @@ PyTorch version for a CPU tensor, and keeps its own launch count:
 - `select_candidates` (B frames): the top `cap` keys of each list as
   (layer, r, c, valid), the slots a stable descending sort of the dense
   scores gives (ops/extrema.py:top_candidates_plain), without a host
-  synchronisation.
+  synchronisation: each key's slot is its rank in its frame's list,
+  counted by `select_shape`'s CTAs a frame.
 The scan only compares and the selection only moves keys, so every
 kernel is bit-identical to its plain version (the compact list up to its
 order, which is free).
@@ -29,10 +30,14 @@ import torch.nn.functional as F
 from sift_tpu_torch import _build
 from sift_tpu_torch.config import SIFTConfig, DEFAULT_CONFIG
 
-# Most slots (min(cap, nL*H*W)) one select block sorts in shared memory
-# (kMaxSharedKeys in csrc/extrema.cu); more sort in a device-memory
-# scratch.
+# Most slots (min(cap, nL*H*W)), and staged keys, a rank-select CTA holds
+# in shared memory (kMaxSharedKeys in csrc/extrema.cu); more slots sort in
+# a device-memory scratch.
 SHARED_SORT_KEYS = 16384
+# select_shape: the least CTAs a select launch gives each SM, and the
+# fewest slots a CTA ranks
+_SELECT_CTAS_PER_SM = 2
+_SELECT_SLOTS_PER_CTA = 32
 # Largest nL*H*W field of a frame the compact scan and the select take:
 # flat indices and counts are 32-bit.
 MAX_FIELD = 2 ** 31 - 1
@@ -266,6 +271,21 @@ def sort_keys(cap: int, total: int) -> int:
     return 1 << max(min(cap, total) - 1, 0).bit_length()
 
 
+def select_shape(cap: int, total: int, frames: int, sms: int) -> tuple:
+    """(ctas, stage) of a rank-select launch over `frames` frames of
+    `total` = nL*H*W flat indices on a card of `sms` SMs: `ctas` CTAs a
+    frame, the fewest that give every SM _SELECT_CTAS_PER_SM CTAs, but no
+    more than one for each _SELECT_SLOTS_PER_CTA slots; each stages up to
+    `stage` keys, twice the slots up to SHARED_SORT_KEYS, so a list of up
+    to twice cap keys is ranked whole in shared memory, with no radix
+    select. Only the time depends on it, never the result."""
+    slots = min(cap, total)
+    ctas = max(1, min(-(-_SELECT_CTAS_PER_SM * sms // max(frames, 1)),
+                      -(-slots // _SELECT_SLOTS_PER_CTA)))
+    stage = max(slots, min(2 * slots, SHARED_SORT_KEYS, total))
+    return ctas, stage
+
+
 def unpack_indices(idx: torch.Tensor, valid: torch.Tensor, hw):
     """Flat (nL*H*W) indices -> (layer 1..nL, r, c) int32, and valid."""
     h, w = hw
@@ -309,9 +329,11 @@ def select_candidates(keys: torch.Tensor, count: torch.Tensor, cap: int,
                       hw):
     """K2 select: each frame's top `cap` candidate keys (from
     extrema_compact) -> layer, r, c (int32), valid (bool), each (B, cap),
-    one block per frame, reading the counts on the device. CPU tensors
-    take the plain version; CUDA tensors launch the kernel. Past
-    SHARED_SORT_KEYS slots the kernel sorts in a (B, sort_keys) scratch."""
+    reading the counts on the device: a grid of select_shape's CTAs a
+    frame, each ranking a slice of the frame's keys. CPU tensors take the
+    plain version; CUDA tensors launch the kernel. Past SHARED_SORT_KEYS
+    slots the kernel sorts in a (B, sort_keys) scratch, one block a
+    frame."""
     _check_select_args(keys, count, cap, hw)
     if _check_device(keys, "select_candidates"):
         return select_candidates_plain(keys, count, cap, hw)
@@ -325,15 +347,35 @@ def select_candidates(keys: torch.Tensor, count: torch.Tensor, cap: int,
     n2 = sort_keys(cap, total)
     scratch = (torch.empty((b, n2), dtype=torch.int64, device=keys.device)
                if n2 > SHARED_SORT_KEYS else None)
+    ctas, stage = select_shape(
+        cap, total, b,
+        torch.cuda.get_device_properties(keys.device).multi_processor_count)
     with torch.cuda.device(keys.device):
         err = _build.library().sift_extrema_select(
             keys.data_ptr(), count.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             *(o.data_ptr() for o in out), valid.data_ptr(), b, cap, nl, h, w,
-            torch.cuda.current_stream().cuda_stream)
+            ctas, stage, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "sift_extrema_select")
     select_candidates.launches += 1
     return (*out, valid)
+
+
+def select_floor(frames: int, cap: int, nl: int, hw,
+                 device: torch.device) -> None:
+    """Launch an empty kernel with the select's shape for these
+    arguments (select_shape's grid, its threads and shared memory): the
+    launch floor that chip_smoke.py prints beside the select's time. No
+    path calls it, and it counts no launch."""
+    h, w = hw
+    ctas, stage = select_shape(
+        cap, nl * h * w, frames,
+        torch.cuda.get_device_properties(device).multi_processor_count)
+    with torch.cuda.device(device):
+        err = _build.library().sift_extrema_select_floor(
+            frames, cap, nl, h, w, ctas, stage,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "sift_extrema_select_floor")
 
 
 extrema_compact.launches = 0

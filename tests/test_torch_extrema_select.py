@@ -7,14 +7,21 @@ CPU through NumPy models of their algorithms:
   and the Pallas kernel's candidates on ties, plateaus and both signs,
   at the default nL and at one that takes two launches;
 - the select kernel packs each candidate as float_bits(score) << 32 |
-  (0xFFFFFFFF - flat index), takes the keys in the order the scan
-  appended them (any order), radix-selects the cap-th largest with 8-bit
-  digit histograms when there are more than cap, sorts the kept keys
-  with the kernel's bitonic network (in shared memory up to
-  SHARED_SORT_KEYS slots, in a device-memory scratch past them; the same
-  network) and fills the slots past the count with the lowest indices
-  that are no candidate: the model equals `top_candidates_plain` (a
-  stable sort of the dense scores) exactly, on all four outputs.
+  (0xFFFFFFFF - flat index) and takes the keys in the order the scan
+  appended them (any order). Up to SHARED_SORT_KEYS slots it runs as a
+  grid of select_shape's CTAs a frame, which the model runs one by one:
+  each stages the list (up to `stage` keys; past that it radix-selects
+  the cap-th largest with 8-bit digit histograms and packs the kept keys
+  thread by thread), ranks its slice of the staged list against the
+  whole list, two keys a thread over parts of the list, and writes each key
+  ranked below cap at its rank; the gap slots take the
+  lowest indices that are no candidate, straight or through a bitmap and
+  a prefix sum of its zeros, split over the CTAs. Every slot is written
+  exactly once. Past SHARED_SORT_KEYS slots one block sorts the kept keys
+  with the bitonic network in a device-memory scratch. The model equals
+  `top_candidates_plain` (a stable sort of the dense scores) exactly, on
+  all four outputs, at every launch shape it is given, and equals
+  `select_candidates_plain` on key lists built at the shape's edges.
 
 The wrappers take the plain route on the CPU without counting a launch;
 chip_smoke.py holds the kernels against the same plain versions on the
@@ -29,6 +36,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from sift_tpu.config import DEFAULT_CONFIG as JCFG
 from sift_tpu.ops.extrema_pallas import extrema_scores_pallas
@@ -83,7 +92,8 @@ def _chunked_scan_model(dog: np.ndarray, thr: float, border: int, nl: int,
 def _kernel_consts() -> dict:
     src = (CSRC / "extrema.cu").read_text()
     return {k: int(v) for k, v in re.findall(
-        r"constexpr int (kMaxSharedKeys|kMaxLayers) = (\d+);", src)}
+        r"constexpr int (kMaxSharedKeys|kMaxLayers|kSelThreads) = (\d+);",
+        src)}
 
 
 def _keys(score: np.ndarray) -> np.ndarray:
@@ -104,9 +114,9 @@ def _appended(dog: np.ndarray, rng, nl: int = TCFG.n_octave_layers
     return keys[rng.permutation(len(keys))]
 
 
-def _radix_threshold(keys: np.ndarray, cap: int) -> int:
+def _radix_threshold(keys: np.ndarray, cap: int) -> tuple:
     """The kernel's radix select: the key at or above which exactly cap
-    keys lie (len(keys) > cap)."""
+    keys lie (len(keys) > cap), and the shift of its last digit."""
     prefix, mask, k = 0, 0, cap
     for shift in range(56, -1, -8):
         sel = keys[(keys & np.uint64(mask)) == np.uint64(prefix)]
@@ -122,13 +132,13 @@ def _radix_threshold(keys: np.ndarray, cap: int) -> int:
                 break
             above += h
         if h == k:
-            return prefix
+            return prefix, shift
     raise AssertionError("radix select did not end")
 
 
 def _bitonic(a: np.ndarray, descending: bool) -> np.ndarray:
-    """The kernel's bitonic network on a power-of-two array: each step
-    compare-exchanges the n2 / 2 pairs (i, i + j)."""
+    """The scratch path's bitonic network on a power-of-two array: each
+    step compare-exchanges the n2 / 2 pairs (i, i + j)."""
     a = a.copy()
     n2 = len(a)
     k = 2
@@ -147,12 +157,12 @@ def _bitonic(a: np.ndarray, descending: bool) -> np.ndarray:
     return a
 
 
-def _select_model(listed: np.ndarray, cap: int, nl: int, h: int, w: int):
-    """One select block: (layer, r, c, valid) each (cap,), and whether
-    the gaps took the general (merge) path."""
-    n, hw = len(listed), h * w
-    total = nl * hw
-    lowest = _radix_threshold(listed, cap) if n > cap else 0
+def _network_model(listed: np.ndarray, cap: int, total: int):
+    """The scratch path (one block, bitonic network in device memory):
+    the flat indices of slots 0..min(cap, total)-1, and whether the gaps
+    took the general (merge) path."""
+    n = len(listed)
+    lowest = _radix_threshold(listed, cap)[0] if n > cap else 0
     kept = listed[listed >= np.uint64(lowest)]
     m = len(kept)
     assert m == min(n, cap)
@@ -176,8 +186,119 @@ def _select_model(listed: np.ndarray, cap: int, nl: int, h: int, w: int):
             idx.append(j + lo)
     else:
         idx.extend(range(max(gaps, 0)))
-    valid = [True] * m + [False] * (cap - m)
-    idx = np.array(idx + [0] * (cap - slots), np.int64)
+    return idx, general
+
+
+def _chunk(span: int, g: int, ctas: int) -> tuple:
+    """csrc/extrema.cu chunk_of: CTA g's part [lo, hi) of span items,
+    chunks of span / 2^lg + 1 (2^lg <= ctas < 2^(lg + 1))."""
+    per = (span >> (ctas.bit_length() - 1)) + 1
+    lo = min(g * per, span)
+    return lo, min(lo + per, span)
+
+
+def _index(x) -> np.ndarray:
+    return np.uint64(MASK32) - (np.asarray(x, np.uint64) & np.uint64(MASK32))
+
+
+def _rank_model(listed: np.ndarray, cap: int, total: int, ctas: int,
+                stage: int, info: dict):
+    """rank_select_kernel, CTA by CTA: the flat index of every slot
+    0..cap-1 and its valid flag; fails unless every slot is written
+    exactly once. info receives the path taken."""
+    threads = _kernel_consts()["kSelThreads"]
+    n = len(listed)
+    slots = min(cap, total)
+    assert slots <= stage <= extrema_cuda.SHARED_SORT_KEYS
+    m = min(n, cap)
+    gaps = slots - m
+    ny = n if n <= stage else cap
+    if n <= stage:
+        staged = listed
+    else:
+        # the cap-th largest key, then thread t's kept keys in list
+        # order, threads in order
+        lowest, info["radix_shift"] = _radix_threshold(listed, cap)
+        staged = np.concatenate([
+            listed[t::threads][listed[t::threads] >= np.uint64(lowest)]
+            for t in range(threads)])
+        assert len(staged) == cap
+        info["packed"] = True
+    general = n <= stage and bool((_index(listed) < gaps).any())
+    info["general"] = general
+    idx = np.full(cap, -1, np.int64)
+    ok = np.zeros(cap, bool)
+    writes = np.zeros(cap, np.int64)
+
+    def write(slot, i, valid):
+        slot = np.asarray(slot, np.int64)
+        idx[slot] = i
+        ok[slot] = valid
+        np.add.at(writes, slot, 1)
+
+    idx_all = _index(staged).astype(np.int64)
+    for g in range(ctas):
+        lo, hi = _chunk(ny, g, ctas)
+        ns = hi - lo
+        if ns:
+            npair = -(-ns // 2)   # a thread takes keys i and i + npair
+            parts = (1 if npair >= threads
+                     else max(1, min(threads // npair, ny >> 5)))
+            assert npair * parts <= threads or parts == 1
+            x = staged[lo:hi]
+            rank = np.zeros(ns, np.int64)
+            size = ny // parts + 1
+            bounds = [min(p * size, ny) for p in range(parts + 1)]
+            assert bounds[0] == 0 and bounds[-1] == ny
+            for p in range(parts):
+                y = staged[bounds[p]:bounds[p + 1]]
+                rank += (y[None, :] > x[:, None]).sum(axis=1)
+            kept = rank < cap
+            write(rank[kept], idx_all[lo:hi][kept], True)
+        if not general:
+            q0, q1 = _chunk(cap - m, g, ctas)
+            q = np.arange(m + q0, m + q1)
+            write(q, np.where(q < slots, q - m, 0), False)
+            continue
+        words = -(-slots // 32)
+        bits = np.zeros(words * 32, bool)
+        below = idx_all[idx_all < slots]
+        bits[below] = True
+        free = ~bits
+        zeros = np.concatenate([[0], np.cumsum(free.reshape(words, 32)
+                                               .sum(axis=1))])[:-1]
+        q0, q1 = _chunk(words, g, ctas)
+        i = np.arange(q0 * 32, min(q1 * 32, slots))
+        i = i[free[i]]
+        j = zeros[i >> 5] + np.array(
+            [free[(k >> 5) * 32:k].sum() for k in i], np.int64)
+        take = j < gaps
+        write(m + j[take], i[take], False)
+        q0, q1 = _chunk(cap - slots, g, ctas)
+        write(np.arange(slots + q0, slots + q1), 0, False)
+    np.testing.assert_array_equal(writes, 1)
+    return idx, ok
+
+
+def _select_model(listed: np.ndarray, cap: int, nl: int, h: int, w: int,
+                  shape=None, info=None):
+    """The select kernel on one frame's list: (layer, r, c, valid) each
+    (cap,), and whether the gaps took the general path. shape: (ctas,
+    stage) of the rank select, default select_shape's for one frame on a
+    132-SM card; past SHARED_SORT_KEYS slots the scratch path runs."""
+    hw = h * w
+    total = nl * hw
+    info = {} if info is None else info
+    if min(cap, total) > extrema_cuda.SHARED_SORT_KEYS:
+        got, general = _network_model(listed, cap, total)
+        slots = min(cap, total)
+        valid = np.arange(cap) < min(len(listed), cap)
+        idx = np.array(got + [0] * (cap - slots), np.int64)
+        info["general"] = general
+    else:
+        ctas, stage = shape or extrema_cuda.select_shape(cap, total, 1, 132)
+        idx, valid = _rank_model(listed, cap, total, ctas, stage, info)
+        general = info["general"]
     rem = idx % hw
     return ((idx // hw + 1).astype(np.int32), (rem // w).astype(np.int32),
             (rem % w).astype(np.int32), np.array(valid)), general
@@ -221,16 +342,69 @@ def _count(dog) -> int:
                            TCFG.n_octave_layers).sum())
 
 
+def _shapes(cap: int, total: int) -> list:
+    """Launch shapes the model runs each case at: select_shape's for one
+    frame and for eight on a 132-SM card, one CTA staging only the slots
+    (so n > cap packs the kept keys), and 7 CTAs staging select_shape's
+    keys."""
+    if min(cap, total) > extrema_cuda.SHARED_SORT_KEYS:
+        return [None]
+    one = extrema_cuda.select_shape(cap, total, 1, 132)
+    return [one, extrema_cuda.select_shape(cap, total, 8, 132),
+            (1, min(cap, total)), (7, one[1])]
+
+
 def _check(dog: np.ndarray, cap: int, seed: int = 0):
-    """The model on dog equals top_candidates_plain; returns (n, the
-    general-gap flag)."""
+    """The model on dog equals top_candidates_plain at every launch
+    shape of _shapes; returns (n, the general-gap flag)."""
     listed = _appended(dog, np.random.default_rng(seed))
-    got, general = _select_model(listed, cap, TCFG.n_octave_layers,
-                                 *dog.shape[1:])
+    nl = TCFG.n_octave_layers
     want = text.top_candidates_plain(torch.from_numpy(dog), cap, TCFG)
-    for g, t in zip(got, want):
-        np.testing.assert_array_equal(g, t.numpy())
+    flags = set()
+    for shape in _shapes(cap, nl * dog.shape[1] * dog.shape[2]):
+        got, general = _select_model(listed, cap, nl, *dog.shape[1:], shape)
+        for g, t in zip(got, want):
+            np.testing.assert_array_equal(g, t.numpy())
+        flags.add(general)
+    assert len(flags) == 1
     return len(listed), general
+
+
+def _listed(rng, n: int, total: int, tied: bool = False,
+            low: int = 0) -> np.ndarray:
+    """A frame's key list of n candidates at distinct flat indices of a
+    total-index field, in a shuffled order: random scores, or one score
+    for all (tied: the keys differ only in their index bits); `low` of
+    the indices lie below 64, the rest anywhere."""
+    idx = np.concatenate([
+        rng.choice(64, low, replace=False),
+        64 + rng.choice(total - 64, n - low, replace=False)])
+    score = (np.full(n, 20.0) if tied else rng.uniform(1.0, 50.0, n)
+             ).astype(np.float32)
+    bits = score.view(np.uint32).astype(np.uint64)
+    keys = (bits << np.uint64(32)) | (np.uint64(MASK32) - idx.astype(
+        np.uint64))
+    return keys[rng.permutation(n)]
+
+
+def _against_plain(lists, cap: int, hw, shape, nl: int = 2):
+    """The model on each frame's list at `shape` equals
+    select_candidates_plain on the (B, nl*H*W) keys; returns each
+    frame's info."""
+    total = nl * hw[0] * hw[1]
+    keys = np.zeros((len(lists), total), np.int64)
+    for b, listed in enumerate(lists):
+        keys[b, :len(listed)] = listed.astype(np.int64)
+    count = torch.tensor([len(x) for x in lists], dtype=torch.int32)
+    want = select_candidates_plain(torch.from_numpy(keys), count, cap, hw)
+    infos = []
+    for b, listed in enumerate(lists):
+        info = {}
+        got, _ = _select_model(listed, cap, nl, *hw, shape, info)
+        for g, t in zip(got, want):
+            np.testing.assert_array_equal(g, t[b].numpy())
+        infos.append(info)
+    return infos
 
 
 # ----------------------------------------------------------------- tests
@@ -468,3 +642,100 @@ def test_wrapper_limits_are_the_kernels():
     assert [extrema_cuda.sort_keys(c, 5000) for c in (1, 2, 3, 4096, 4097,
                                                       9000)] == [
         1, 2, 4, 4096, 8192, 8192]
+
+
+HW = (40, 64)
+TOTAL = 2 * HW[0] * HW[1]
+
+
+def _edge_counts(cap: int, ctas: int, stage: int) -> list:
+    """chip_smoke.py's counts at the edges of a launch shape (slices of
+    1, 32 and kSelThreads keys a CTA and their neighbours, cap +- 1,
+    stage and stage + 1), inside the test's field."""
+    return [c for c in chip_smoke.select_edge_counts(
+        cap, ctas, stage, _kernel_consts()["kSelThreads"]) if c <= TOTAL]
+
+
+@pytest.mark.parametrize("cap,shape", [
+    (512, None), (512, (1, 512)), (512, (3, 1024)), (128, None),
+    (128, (128, 256)), (2000, (5, 4000))])
+def test_rank_select_at_the_partition_edges(cap, shape):
+    # n at the slices', warps' and parts' boundaries, n = cap +- 1 and
+    # n = stage + 1: the model at that shape is select_candidates_plain
+    shape = shape or extrema_cuda.select_shape(cap, TOTAL, 1, 132)
+    rng = np.random.default_rng(cap + shape[0])
+    paths = set()
+    for n in _edge_counts(cap, *shape):
+        (info,) = _against_plain([_listed(rng, n, TOTAL)], cap, HW, shape)
+        paths.add((n > cap, bool(info.get("packed"))))
+    assert (True, True) in paths and (False, False) in paths
+
+
+@pytest.mark.parametrize("n", [300, 5000])
+def test_tied_plateau_reaches_the_index_digits(n):
+    # one score for every key: the ranks order the ties by their index
+    # bits (n <= stage); past stage the radix select resolves the cap-th
+    # key in the low (index) word before the kept keys are packed
+    cap = 200
+    rng = np.random.default_rng(n)
+    shape = extrema_cuda.select_shape(cap, TOTAL, 1, 132)
+    assert (n > shape[1]) == (n == 5000)
+    (info,) = _against_plain([_listed(rng, n, TOTAL, tied=True)], cap, HW,
+                             shape)
+    assert info.get("radix_shift", 0) < 32 and ("radix_shift" in info) == (
+        n == 5000)
+
+
+@pytest.mark.parametrize("shape", [None, (1, 600), (9, 600)])
+def test_rank_select_general_gap_path(shape):
+    # candidates among the first cap - n indices: the gaps come from the
+    # bitmap of candidates and the prefix sum of its zeros
+    cap = 600
+    shape = shape or extrema_cuda.select_shape(cap, TOTAL, 1, 132)
+    rng = np.random.default_rng(21)
+    for n, low in ((1, 1), (40, 25), (300, 64)):
+        (info,) = _against_plain([_listed(rng, n, TOTAL, low=low)], cap, HW,
+                                 shape)
+        assert info["general"]
+
+
+def test_batch_with_an_empty_frame_and_one_over_cap():
+    # B = 8 at its own launch shape: frame 2 has no candidate, frame 5
+    # more than cap (and frame 6 more than stage); each row is its frame
+    cap = 256
+    rng = np.random.default_rng(22)
+    shape = extrema_cuda.select_shape(cap, TOTAL, 8, 132)
+    counts = [100, 255, 0, 1, 256, 400, shape[1] + 50, 37]
+    infos = _against_plain([_listed(rng, n, TOTAL) for n in counts], cap,
+                           HW, shape)
+    assert infos[6].get("packed") and not infos[5].get("packed")
+
+
+def test_select_shape_rule():
+    # the launch shape comes from what the host knows: cap, the field,
+    # the frames and the SM count
+    shape = extrema_cuda.select_shape
+    total = 2 * 1080 * 1920
+    # the main path on a 132-SM card: 1080p octaves 0..4, one frame and
+    # the batch step's 8
+    assert [shape(c, total, 1, 132) for c in TCFG.detect_caps] == [
+        (128, 8192), (64, 4096), (16, 1024), (8, 512), (4, 256)]
+    assert [shape(c, total, 8, 132)[0] for c in TCFG.detect_caps] == [
+        33, 33, 16, 8, 4]
+    threads = _kernel_consts()["kSelThreads"]
+    for cap in (1, 5, 31, 32, 33, 128, 4096, 9000, 16384):
+        for tot in (7, 448, 5120, total):
+            for frames in (1, 2, 8, 65535):
+                for sms in (1, 114, 132):
+                    ctas, stage = shape(cap, tot, frames, sms)
+                    slots = min(cap, tot)
+                    assert 1 <= ctas <= max(1, -(-slots // 32))
+                    assert ctas * frames >= min(2 * sms,
+                                                frames * -(-slots // 32))
+                    assert slots <= stage <= max(
+                        slots, min(2 * slots, extrema_cuda.SHARED_SORT_KEYS))
+                    # the CTA's shared memory (the staged keys and two
+                    # words a 32 slots; the radix select's and the
+                    # parts' static arrays) fits one H100 block
+                    smem = 8 * stage + 8 * -(-slots // 32)
+                    assert smem + 4 * (3 * threads) + 1100 <= 232448

@@ -23,6 +23,11 @@ way is still timed the same way here. Each process times:
     of detect_object and top_candidates_batch at every octave of the
     batch step, whatever the tree launches for it (before the compact
     scan: the dense K2, a stable sort of the scores and the decode);
+  - the select kernel alone (extrema_cuda.select_candidates) at the same
+    15 launches, on the keys and counts of the tree's own compact scan
+    (trees that have one), each with the tree's select launch shape
+    where it has select_shape and, where it has select_floor, the device
+    time of an empty kernel launched with that shape (floor_ms);
   - K3-ori and K3-desc at every launch of the scene's and the object's
     detect_and_compute (one each per usable octave) and of the batch
     step's detect_and_compute_batch (one each per octave for the 8
@@ -37,8 +42,9 @@ each with
   - host_us: the host's time per call while the card is busy, the
     median over 10 rounds of 50 calls enqueued without a synchronise;
 and the sums of each over the launches of one detect_object and of one
-batch step. Each process prints one JSON line; the summary and all lines
-go to --out. Needs one card.
+batch step. --select-only times the select kernel's rows alone (a
+process takes seconds instead of minutes). Each process prints one JSON
+line; the summary and all lines go to --out. Needs one card.
 """
 
 from __future__ import annotations
@@ -79,7 +85,8 @@ def _times(cs, label, shape, fn) -> dict:
 
 
 def _sums(rows) -> dict:
-    return {k: sum(r[k] for r in rows) for k in METHODS}
+    return {k: sum(r[k] for r in rows) for k in METHODS + ("floor_ms",)
+            if all(k in r for r in rows)}
 
 
 def hist_launches(fn) -> list:
@@ -125,6 +132,78 @@ def hist_rows(cs, calls, where) -> list:
         octave[name] += 1
         rows.append((name, row))
     return rows
+
+
+def select_alone_rows(cs, dogs: dict, cfg) -> dict:
+    """The select kernel alone at every octave of detect_object (scene
+    and object) and of the batch step: times, counts, launch shape and,
+    where the tree has one, its launch floor; with sums per
+    detect_object and per batch step."""
+    import torch
+    from sift_tpu_torch.ops import extrema_cuda as ext
+    if not hasattr(ext, "select_candidates"):
+        return {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nl = cfg.n_octave_layers
+    out = {}
+    for where, octaves in dogs.items():
+        rows = []
+        for o, d in enumerate(octaves):
+            d4 = d if d.dim() == 4 else d[None]
+            keys, count = ext.extrema_compact(d4, cfg)
+            cap, hw = cfg.detect_caps[o], tuple(d4.shape[-2:])
+            row = _times(cs, f"{where} octave {o}", d4.shape,
+                         lambda k=keys, c=count, cap=cap, hw=hw:
+                         ext.select_candidates(k, c, cap, hw))
+            row["counts"] = count.tolist()
+            row["cap"] = cap
+            if hasattr(ext, "select_shape"):
+                row["shape"] = list(ext.select_shape(
+                    cap, nl * hw[0] * hw[1], d4.shape[0], sms))
+            if hasattr(ext, "select_floor"):
+                row["floor_ms"] = cs.median_ms(
+                    lambda b=d4.shape[0], cap=cap, hw=hw:
+                    ext.select_floor(b, cap, nl, hw, d4.device))
+            rows.append(row)
+        out[where] = rows
+    return {"select": out["scene"] + out["object"],
+            "select-batch": out["batch"],
+            "select_per_detect_object": _sums(out["scene"] + out["object"]),
+            "select_per_batch_step": _sums(out["batch"])}
+
+
+def select_worker(tree: pathlib.Path) -> dict:
+    """--select-only: the select kernel's rows alone."""
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("timing_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch
+    from sift_tpu_torch import _build
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops import pyramid
+    _build.library()
+    scene_np, obj_np, _ = cs.full_size_inputs()
+    img = torch.from_numpy(scene_np).cuda()
+    obj = torch.from_numpy(obj_np).cuda()
+    frames = cs.batch_frames(img)
+    dogs = {"scene": pyramid.build_dog_pyramid(
+                pyramid.build_gaussian_pyramid(img, cfg)),
+            "object": pyramid.build_dog_pyramid(
+                pyramid.build_gaussian_pyramid(obj, cfg)),
+            "batch": pyramid.build_dog_pyramid_batch(
+                pyramid.build_gaussian_pyramid_batch(frames, cfg))}
+    dogs = {k: [d.contiguous() for d in v] for k, v in dogs.items()}
+    rows = select_alone_rows(cs, dogs, cfg)
+    return {"tree": str(tree), **rows, "main": _select_main(rows)}
+
+
+def _select_main(rows: dict) -> dict:
+    return {"select_per_detect_object": rows["select_per_detect_object"],
+            "select_per_batch_step": rows["select_per_batch_step"],
+            **{f"select {r['label']}": r
+               for r in rows["select"] + rows["select-batch"]}}
 
 
 def worker(tree: pathlib.Path) -> dict:
@@ -185,6 +264,7 @@ def worker(tree: pathlib.Path) -> dict:
     sel = (select_rows("scene", ext.top_candidates)
            + select_rows("object", ext.top_candidates))
     selb = select_rows("batch", ext.top_candidates_batch)
+    alone = select_alone_rows(cs, dogs, cfg)
     k3 = (hist_rows(cs, hist_launches(
               lambda: sift.detect_and_compute(img, cfg)), "scene")
           + hist_rows(cs, hist_launches(
@@ -210,8 +290,9 @@ def worker(tree: pathlib.Path) -> dict:
             "K1_per_detect_object": _sums(k1),
             "K1-batch_per_batch_step": _sums(k1b),
             "selection_per_detect_object": _sums(sel),
-            "selection_per_batch_step": _sums(selb), **k3_out,
-            "main": {"K1": k1[1], "K1-batch": k1b[1], "K4": k4, "K2": k2,
+            "selection_per_batch_step": _sums(selb), **k3_out, **alone,
+            "main": {**(_select_main(alone) if alone else {}),
+                     "K1": k1[1], "K1-batch": k1b[1], "K4": k4, "K2": k2,
                      "K2-batch": k2b,
                      "selection_per_detect_object": _sums(sel),
                      "selection_per_batch_step": _sums(selb),
@@ -227,10 +308,13 @@ def main() -> int:
     ap.add_argument("trees", nargs="*", default=[str(ROOT)])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--out", default=str(ROOT / "build" / "kernel_times.json"))
+    ap.add_argument("--select-only", action="store_true",
+                    help="time the select kernel's rows alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(pathlib.Path(args.worker).resolve())))
+        work = select_worker if args.select_only else worker
+        print(json.dumps(work(pathlib.Path(args.worker).resolve())))
         return 0
 
     import torch
@@ -240,17 +324,26 @@ def main() -> int:
     card = steps.card_name()
     print(card)
     trees = [str(pathlib.Path(t).resolve()) for t in args.trees]
-    runs = steps.run_in_turns(__file__, trees, args.rounds, (
-        "tree", "main", "K1_per_detect_object", "K1-batch_per_batch_step"))
+    runs = steps.run_in_turns(
+        __file__, trees, args.rounds,
+        ("tree", "select_per_detect_object", "select_per_batch_step")
+        if args.select_only else
+        ("tree", "main", "K1_per_detect_object", "K1-batch_per_batch_step"),
+        ("--select-only",) if args.select_only else ())
     if runs is None:
         return 1
-    keys = ("K1", "K1-batch", "K4", "K2", "K2-batch",
-            "selection_per_detect_object", "selection_per_batch_step",
-            "K3-ori", "K3-desc", "K3-ori batch", "K3-desc batch",
-            "K3-ori_per_detect_object", "K3-desc_per_detect_object",
-            "K3-ori_per_batch_step", "K3-desc_per_batch_step")
+    keys = () if args.select_only else (
+        "K1", "K1-batch", "K4", "K2", "K2-batch",
+        "selection_per_detect_object", "selection_per_batch_step",
+        "K3-ori", "K3-desc", "K3-ori batch", "K3-desc batch",
+        "K3-ori_per_detect_object", "K3-desc_per_detect_object",
+        "K3-ori_per_batch_step", "K3-desc_per_batch_step")
+    keys += tuple(dict.fromkeys(k for r in runs for k in r["main"]
+                                if k.startswith("select")))
     summary = {tree: {k: {m: [r["main"][k][m] for r in runs
-                              if r["tree"] == tree] for m in METHODS}
+                              if r["tree"] == tree
+                              and m in r["main"].get(k, {})]
+                          for m in METHODS + ("floor_ms",)}
                       for k in keys}
                for tree in trees}
     out = pathlib.Path(args.out)

@@ -191,18 +191,21 @@ def card_name() -> str:
                           text=True, timeout=60, check=True).stdout.strip()
 
 
-def run_in_turns(script: str, trees: list, rounds: int, show: tuple):
-    """Run `script --worker TREE` in its own process for each tree, in
-    the order A B B A for each round, from the tree's directory; print
-    the `show` keys of each process's JSON line as it comes. Returns the
-    lines, or None after printing the output of a process that failed."""
+def run_in_turns(script: str, trees: list, rounds: int, show: tuple,
+                 args: tuple = ()):
+    """Run `script --worker TREE [args]` in its own process for each
+    tree, in the order A B B A for each round, from the tree's directory;
+    print the `show` keys of each process's JSON line as it comes.
+    Returns the lines, or None after printing the output of a process
+    that failed."""
     order = []
     for _ in range(rounds):
         order += trees + trees[::-1]
     runs = []
     for tree in order:
-        proc = subprocess.run([sys.executable, script, "--worker", tree],
-                              capture_output=True, text=True, cwd=tree)
+        proc = subprocess.run([sys.executable, script, "--worker", tree,
+                               *args], capture_output=True, text=True,
+                              cwd=tree)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             return None
