@@ -30,6 +30,11 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      batch step's 7 pairs in one launch, (7, 1536, 128) x (7, 1536, 128),
      against its batched plain version, the single launch on each pair
      and a second launch, bit for bit, timed beside 7 single launches;
+     K3 at p = 39, N = 1024 and p = 85, N = 64 and 1024, each time
+     beside its launch floor (an empty kernel of its launch shape), and
+     on edge cases: p = 1, p = Wp, p = 129, N = 1, N = 0, N = 8192, the
+     1958-wide stack, a source 4 bytes off a 16-byte boundary, starts
+     past every edge of the stack;
      K3-ori and K3-desc on octave
      0 of the 1080p scene with its real keypoints plus slots whose
      windows start outside the image, within rtol 1e-5 and
@@ -152,6 +157,7 @@ from __future__ import annotations
 
 import json
 import math
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -159,6 +165,7 @@ import time
 
 import numpy as np
 
+ROOT = pathlib.Path(__file__).resolve().parent
 SCENE_HW = (1080, 1920)
 OBJECT_HW = (480, 640)
 PAIR_HW = (480, 640)
@@ -726,8 +733,6 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
                                                  extrema_scores_batch,
                                                  extrema_scores_batch_plain,
                                                  extrema_scores_plain)
-    from sift_tpu_torch.ops.ori_gather_cuda import (gather_patches,
-                                                    gather_patches_plain)
     from sift_tpu_torch.ops.match_cuda import (knn2_l1_cuda, knn2_l1_plain,
                                                launch_plan)
 
@@ -829,31 +834,7 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
     dogb0 = dogsb[0]
     del dogsb
 
-    # K3: p=39 with N=1024 (orientation), p=85 with N=64 and N=1024; a
-    # copy: each window read once and written once
-    k3 = []
-    h, w = octs[0].shape[1:]
-    for rad, n in ((cfg.ori_patch_radius, 1024), (cfg.descr_patch_radius, 64),
-                   (cfg.descr_patch_radius, 1024)):
-        p = 2 * rad + 3
-        padded = torch.nn.functional.pad(octs[0][1:3], (rad + 1,) * 4)
-        lay = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev)
-        r = torch.from_numpy(rng.integers(-3, h + 3, n).astype(np.int32)).to(dev)
-        c = torch.from_numpy(rng.integers(-3, w + 3, n).astype(np.int32)).to(dev)
-        got = gather_patches(padded, lay, r, c, p)
-        want = gather_patches_plain(padded, lay, r, c, p)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"K3 p={p} N={n} is not bit-identical")
-        ms = median_ms(lambda: gather_patches(padded, lay, r, c, p))
-        pms = median_ms(lambda: gather_patches_plain(padded, lay, r, c, p))
-        bnd = bound_ms(2.0 * 4 * n * p * p + 12 * n, 0.0)
-        k3.append((p, n, ms, pms, bnd))
-        print(f"phase 2 K3 gather p={p} N={n}: max_abs_err=0.0 kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bnd[0]:.4f} ms "
-              f"({bnd[1]})")
-    record("K3", "K3 keypoint patch gather", "sift_tpu_torch/csrc/gather.cu",
-           "sift_tpu/ops/ori_gather_pallas.py:109", 0.0, k3[1][2], k3[1][3],
-           k3[1][4])
+    phase_gather(octs[0], cfg, rng, record)
 
     # K3-ori and K3-desc on octave 0 of the scene
     kp = sift.detect_octave(octs[0], dogs[0], 0, cfg.detect_caps[0], cfg,
@@ -899,6 +880,139 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
            "sift_tpu/ops/match_pallas.py:83", err, ms, pms, bnd)
     phase_knn_pairs(rng, n, m, dev, report["K4"])
     return report
+
+
+def gather_starts(rng, n: int, nlay: int, hp: int, wp: int, p: int, dev):
+    """(N,) int32 layer, row and column starts of K3 windows, drawn
+    across the stack and past every edge: the first four slots start at
+    layer -1 and L, before row and column 0 and past Hp - p and Wp - p."""
+    import torch
+    lay = rng.integers(-1, nlay + 1, n)
+    r = rng.integers(-5, hp - p + 6, n)
+    c = rng.integers(-5, wp - p + 6, n)
+    edges = [(-1, -7, -9), (nlay, hp, wp), (0, hp - p + 1, -1),
+             (nlay - 1, -1, wp - p + 1)]
+    for k, e in enumerate(edges[:n]):
+        lay[k], r[k], c[k] = e
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(dev)
+                 for a in (lay, r, c))
+
+
+def phase_gather_edges(stacks: dict, dev) -> str:
+    """Phase 2, K3 against gather_patches_plain under torch.equal where
+    its launch shape or addressing is at an edge: p = 1, p = Wp, p = 129
+    (above the Pallas kernel's cap of 128), N = 1, N = 0, N = 8192, the
+    1958-wide stack, a source 4 bytes off a 16-byte boundary, every
+    window set with starts past every edge (gather_starts)."""
+    import torch
+    from sift_tpu_torch.ops.ori_gather_cuda import (gather_patches,
+                                                    gather_patches_plain,
+                                                    launch_warps)
+    rng = np.random.default_rng(13)
+    narrow = torch.from_numpy(
+        rng.standard_normal((3, 70, 61)).astype(np.float32)).to(dev)
+    cases = [("p=1", narrow, 1, 300), ("p=Wp=61", narrow, 61, 50),
+             ("p=129", stacks[85], 129, 300), ("N=1", stacks[85], 85, 1),
+             ("N=0", stacks[85], 85, 0), ("N=8192", stacks[85], 85, 8192),
+             ("Wp=1958", stacks[39], 39, 2048),
+             ("4 bytes off", offset_copy(stacks[39]), 39, 1024)]
+    done = []
+    for label, src, p, n in cases:
+        starts = gather_starts(rng, n, *src.shape, p, dev)
+        got = gather_patches(src, *starts, p)
+        want = gather_patches_plain(src, *starts, p)
+        torch.cuda.synchronize()
+        check(got.shape == (n, p, p) and torch.equal(got, want),
+              f"K3 {label} ({tuple(src.shape)}, p={p}, N={n}) is not "
+              f"bit-identical to gather_patches_plain")
+        warps = launch_warps(n, p, src.device) if n else None
+        done.append(f"{label} {tuple(src.shape)} N={n} warps {warps}")
+        del got, want
+    return "; ".join(done)
+
+
+def gather_cases(gauss, cfg, rng) -> list:
+    """K3's three phase-2 launches on octave 0's (S, H, W) stack `gauss`:
+    (label, (padded, layer, row, col, p)) for p = 39 with N = 1024 (the
+    orientation stage's octave), p = 85 with N = 64 (the descriptor
+    stage's chunk) and N = 1024; starts drawn from rng, a few outside the
+    image."""
+    import torch
+    dev = gauss.device
+    h, w = gauss.shape[1:]
+    cases = []
+    for rad, n in ((cfg.ori_patch_radius, 1024), (cfg.descr_patch_radius, 64),
+                   (cfg.descr_patch_radius, 1024)):
+        p = 2 * rad + 3
+        padded = torch.nn.functional.pad(gauss[1:3], (rad + 1,) * 4)
+        lay, r, c = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in
+                     (rng.integers(0, 3, n), rng.integers(-3, h + 3, n),
+                      rng.integers(-3, w + 3, n)))
+        cases.append((f"p={p} N={n}", (padded, lay, r, c, p)))
+    return cases
+
+
+def gather_bound(padded, layer, row, col, p: int) -> tuple:
+    """K3, a copy: each window written once, each element of the stack
+    that the clamped windows cover read once (their union, counted on
+    the card: windows overlap, and at p = 85, N = 1024 they hold more
+    elements than the stack), and the 12 bytes of each window's
+    starts."""
+    import torch
+    nlay, hp, wp = padded.shape
+    n = layer.shape[0]
+    off = torch.arange(p, device=padded.device)
+    covered = torch.zeros(padded.shape, dtype=torch.bool,
+                          device=padded.device)
+    covered[layer.long().clamp(0, nlay - 1)[:, None, None],
+            (row.long().clamp(0, hp - p)[:, None] + off)[:, :, None],
+            (col.long().clamp(0, wp - p)[:, None] + off)[:, None, :]] = True
+    return bound_ms(4.0 * (n * p * p + int(covered.sum())) + 12 * n, 0.0)
+
+
+def phase_gather(gauss, cfg, rng, record) -> None:
+    """Phase 2, K3 at gather_cases' three shapes (p = 85, N = 64 is the
+    JSON row), bit for bit against gather_patches_plain, then on
+    phase_gather_edges' cases; each time beside its launch floor (an
+    empty kernel of its grid, tools/torch_cuda_variants.py) and its
+    bound."""
+    import torch
+    from sift_tpu_torch import _build
+    from sift_tpu_torch.ops.ori_gather_cuda import (gather_grid,
+                                                    gather_patches,
+                                                    gather_patches_plain,
+                                                    launch_warps)
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_cuda_variants as variants
+    floor_lib = variants.floor_library(ROOT / "build" / "smoke_floor",
+                                       _build)
+    dev = gauss.device
+    stacks, rows = {}, []
+    for label, args in gather_cases(gauss, cfg, rng):
+        padded, n, p = args[0], args[1].shape[0], args[4]
+        stacks[p] = padded
+        got = gather_patches(*args)
+        want = gather_patches_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K3 {label} is not bit-identical")
+        del got, want
+        ms = median_ms(lambda: gather_patches(*args))
+        pms = median_ms(lambda: gather_patches_plain(*args))
+        ctas, threads = gather_grid(p, launch_warps(n, p, dev))
+        floor = median_ms(lambda: variants.launch_empty(
+            floor_lib, (n, ctas), threads))
+        bnd = gather_bound(*args)
+        rows.append((ms, pms, bnd))
+        print(f"phase 2 K3 gather {label} {tuple(padded.shape)}: "
+              f"max_abs_err=0.0 kernel {ms:.4f} ms (launch floor "
+              f"{floor:.4f}; {n} x {ctas} CTAs of {threads} threads), "
+              f"plain {pms:.4f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / ms:.0%} of it")
+    edges = phase_gather_edges(stacks, dev)
+    print(f"phase 2 K3 gather edges, each bit-identical to "
+          f"gather_patches_plain: {edges}")
+    record("K3", "K3 keypoint patch gather", "sift_tpu_torch/csrc/gather.cu",
+           "sift_tpu/ops/ori_gather_pallas.py:109", 0.0, *rows[1])
 
 
 def phase_knn_pairs(rng, n: int, m: int, dev, row: dict) -> None:
@@ -1009,7 +1123,6 @@ def phase_select(dogs, dogs_obj, dogsb, record) -> None:
     1080p octave 0: over the sorted key lists and counts (compact scan)
     and over layer, r, c and valid (select)."""
     import dataclasses
-    import pathlib
     import re
 
     import torch

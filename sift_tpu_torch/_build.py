@@ -50,7 +50,8 @@ _SIGNATURES = {
     # B, cap, nl, H, W, ctas, stage, stream: an empty kernel launched with
     # the select's shape (its launch floor; measurement only)
     "sift_extrema_select_floor": (_I, _I, _I, _I, _I, _I, _I, _P),
-    "sift_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # src, layer, row, col, out, N, L, Hp, Wp, p, warps (a CTA), stream
+    "sift_gather_patches": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # src, layer, row, col, radius, expf_scale, out, N, B (frames), L,
     # Hp, Wp, rp, row_lo, row_hi (the image's rows), cluster (CTAs a
     # keypoint), stream

@@ -72,7 +72,7 @@ def test_k2_extrema_plain_matches_pallas_exactly():
     assert (got > 0).sum() > 10
 
 
-@pytest.mark.parametrize("patch,n", [(39, 37), (85, 64)])
+@pytest.mark.parametrize("patch,n", [(39, 37), (85, 64), (85, 1), (39, 130)])
 def test_k3_gather_plain_matches_pallas_exactly(patch, n):
     # exact: a gather is a copy; starts out of range are clamped as
     # lax.dynamic_slice clamps them
@@ -83,8 +83,8 @@ def test_k3_gather_plain_matches_pallas_exactly(patch, n):
     layer = rng.integers(-1, 3, n).astype(np.int32)
     r = rng.integers(-5, h + patch, n).astype(np.int32)
     c = rng.integers(-5, w + patch, n).astype(np.int32)
-    r[:3] = (-7, hp - patch + 4, 0)
-    c[:3] = (wp, -1, wp - patch)
+    r[:3] = (-7, hp - patch + 4, 0)[:n]
+    c[:3] = (wp, -1, wp - patch)[:n]
     want = np.asarray(jax_gather(jnp.asarray(padded), jnp.asarray(layer),
                                  jnp.asarray(r), jnp.asarray(c), patch))
     got = gather_patches_plain(torch.from_numpy(padded),

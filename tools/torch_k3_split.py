@@ -8,12 +8,12 @@ more checkouts of the repository, in turns.
 
 Each TREE is a directory holding sift_tpu_torch/ (the default is this
 checkout). Every tree runs in its own process, in the order A B B A for
-each round (tools/torch_profile_steps.py's in-turns runner). A process copies the
-tree's csrc/ori_hist.cu, csrc/descr_hist.cu and csrc/hist_common.cuh
-into build/k3_split/<tree>/<variant>/, edits the copies, compiles them
-with the tree's nvcc flags (and -Xptxas -v) into a library of their own,
-and loads it in place of the tree's kernel library under the tree's own
-wrappers. The variants:
+each round (tools/torch_profile_steps.py's in-turns runner). A process
+copies the tree's csrc/ori_hist.cu, csrc/descr_hist.cu and
+csrc/hist_common.cuh into build/k3_split/<tree>/<variant>/, edits the
+copies, compiles them into a library of their own and loads it in place
+of the tree's kernel library under the tree's own wrappers
+(tools/torch_cuda_variants.py). The variants:
   - "load": the sample loop runs no iteration; the window is loaded (and,
     where the kernel takes its integer scale from it, reduced) and the
     histogram written;
@@ -48,8 +48,6 @@ Needs one card and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import importlib.util
 import json
 import pathlib
 import re
@@ -59,7 +57,8 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
-import torch_kernel_times as times  # noqa: E402  (hist_launches)
+import torch_cuda_variants as variants  # noqa: E402  (edited builds)
+import torch_kernel_times as times  # noqa: E402  (set-up, hist_launches)
 import torch_profile_steps as steps  # noqa: E402  (runs trees in turns)
 
 SOURCES = ("ori_hist.cu", "descr_hist.cu", "hist_common.cuh")
@@ -68,8 +67,9 @@ _DESC_SINK = ("{ float v_[8]; corner_weights<kBf16>(fr, fc, fo, mag, v_); "
               "asm volatile(\"\" :: \"f\"(v_[0]), \"f\"(v_[1]), "
               "\"f\"(v_[2]), \"f\"(v_[3]), \"f\"(v_[4]), \"f\"(v_[5]), "
               "\"f\"(v_[6]), \"f\"(v_[7]), \"r\"(key)); }")
-# (file, variant) -> [(pattern, replacement)]: the first pattern of the
-# list that occurs in the file is replaced, and it must occur once
+# (file, variant) -> [(pattern, replacement)] (torch_cuda_variants.edit:
+# the first pattern of the list that occurs in the file is replaced, and
+# it must occur once)
 RULES = {
     ("ori_hist.cu", "load"): [(r"b < nsamp;", "b < 0;"),
                               (r"s < nband;", "s < 0;")],
@@ -91,47 +91,6 @@ RULES = {
                                "constexpr int kThreads = 32;")],
 }
 VARIANTS = ("load", "arith", "whole", "warp")
-
-
-def edit(text: str, rules) -> str:
-    """Apply the first rule whose pattern occurs in text; it must occur
-    once."""
-    for pattern, repl in rules:
-        found = re.findall(pattern, text)
-        if found:
-            if len(found) != 1:
-                raise RuntimeError(f"{pattern!r} occurs {len(found)} times")
-            return re.sub(pattern, lambda _: repl, text)
-    raise RuntimeError(f"no rule of {[p for p, _ in rules]} matches")
-
-
-def build_variant(tree: pathlib.Path, variant: str, out: pathlib.Path,
-                  build_mod):
-    """Compile the variant's edited copies into out/libk3.so; returns the
-    .so path, the .o paths and ptxas's report."""
-    if out.exists():
-        shutil.rmtree(out)
-    out.mkdir(parents=True)
-    for name in SOURCES:
-        text = (tree / "sift_tpu_torch" / "csrc" / name).read_text()
-        if (name, variant) in RULES:
-            text = edit(text, RULES[(name, variant)])
-        (out / name).write_text(text)
-    nvcc = build_mod._nvcc()
-    flags = [*build_mod._FLAGS, "-Xptxas", "-v"]
-    objs = [out / f"{n[:-3]}.o" for n in SOURCES[:2]]
-    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(o),
-                               str(out / n)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for n, o in zip(SOURCES[:2], objs)]
-    reports = [p.communicate()[0] for p in procs]
-    for p, rep in zip(procs, reports):
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {variant}:\n{rep}")
-    lib = out / "libk3.so"
-    subprocess.run([nvcc, *build_mod._FLAGS, "-shared", "-o", str(lib),
-                    *map(str, objs)], check=True)
-    return lib, objs, "".join(reports)
 
 
 def ptxas_summary(report: str) -> list:
@@ -162,21 +121,8 @@ def shared_atomics(objs) -> dict:
     return out
 
 
-def load(lib_path, build_mod):
-    lib = ctypes.CDLL(str(lib_path))
-    for name in ENTRIES:
-        fn = getattr(lib, name)
-        fn.argtypes = list(build_mod._SIGNATURES[name])
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def worker(tree: pathlib.Path) -> dict:
-    sys.path.insert(0, str(tree))
-    spec = importlib.util.spec_from_file_location("timing_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = times.load_tree(tree)
     import torch
     from sift_tpu_torch import _build, sift
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
@@ -184,10 +130,7 @@ def worker(tree: pathlib.Path) -> dict:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.library()
-    scene_np, obj_np, _ = cs.full_size_inputs()
-    img = torch.from_numpy(scene_np).cuda()
-    obj = torch.from_numpy(obj_np).cuda()
+    img, obj = times.scene_and_object(cs)
     scene = times.hist_launches(lambda: sift.detect_and_compute(img, cfg))
     small_octave = times.hist_launches(
         lambda: sift.detect_and_compute(obj, cfg))
@@ -221,14 +164,14 @@ def worker(tree: pathlib.Path) -> dict:
 
     tag = re.sub(r"[^A-Za-z0-9]+", "_", str(tree.resolve()))[-60:]
     result = {"tree": str(tree), "variants": {}}
-    real_library = _build.library
-    try:
-        for variant in VARIANTS:
-            lib_path, objs, report = build_variant(
-                tree, variant, ROOT / "build" / "k3_split" / tag / variant,
-                _build)
-            lib = load(lib_path, _build)
-            _build.library = lambda lib=lib: lib
+    for variant in VARIANTS:
+        rules = {name: RULES[(name, variant)] for name in SOURCES
+                 if (name, variant) in RULES}
+        lib_path, objs, report = variants.build_variant(
+            tree, SOURCES, rules, ROOT / "build" / "k3_split" / tag / variant,
+            _build)
+        with variants.in_place_of_library(
+                _build, variants.load(lib_path, _build, ENTRIES)):
             row = {"ptxas": ptxas_summary(report),
                    "ptxas_lines": [ln for ln in report.splitlines()
                                    if "ptxas" in ln],
@@ -246,9 +189,7 @@ def worker(tree: pathlib.Path) -> dict:
                         row["cluster_sweep"][size] = time_all()
                     for m in mods:
                         m.cluster_size = chosen
-            result["variants"][variant] = row
-    finally:
-        _build.library = real_library
+        result["variants"][variant] = row
     return result
 
 

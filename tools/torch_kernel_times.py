@@ -43,8 +43,15 @@ each with
     median over 10 rounds of 50 calls enqueued without a synchronise;
 and the sums of each over the launches of one detect_object and of one
 batch step. --select-only times the select kernel's rows alone (a
-process takes seconds instead of minutes). Each process prints one JSON
-line; the summary and all lines go to --out. Needs one card.
+process takes seconds instead of minutes). --gather-only times the bare
+K3 gather (ori_gather_cuda.gather_patches) alone at chip_smoke.py
+phase 2's three shapes, on the same inputs (1080p octave 0's stacks, p =
+39 with N = 1024, p = 85 with N = 64 and N = 1024), each held bit for
+bit against gather_patches_plain, with its plain version's device time,
+its bound, the device time of an empty kernel of the tree's launch
+shape (floor_ms, tools/torch_cuda_variants.py) and, in a tree with
+gather_shape, its warps a CTA and a sweep of them at each. Each process prints one JSON line; the summary and all lines go
+to --out. Needs one card.
 """
 
 from __future__ import annotations
@@ -172,30 +179,47 @@ def select_alone_rows(cs, dogs: dict, cfg) -> dict:
             "select_per_batch_step": _sums(out["batch"])}
 
 
-def select_worker(tree: pathlib.Path) -> dict:
-    """--select-only: the select kernel's rows alone."""
+def load_tree(tree: pathlib.Path):
+    """Put `tree` first on the path, import this checkout's chip_smoke.py
+    (the inputs and the timing that every tree shares) and build the
+    tree's kernel library; returns chip_smoke."""
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("timing_smoke",
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    import torch
     from sift_tpu_torch import _build
-    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
-    from sift_tpu_torch.ops import pyramid
     _build.library()
+    return cs
+
+
+def scene_and_object(cs) -> tuple:
+    """chip_smoke's 1080p scene and 640x480 object, on the card."""
+    import torch
     scene_np, obj_np, _ = cs.full_size_inputs()
-    img = torch.from_numpy(scene_np).cuda()
-    obj = torch.from_numpy(obj_np).cuda()
-    frames = cs.batch_frames(img)
+    return torch.from_numpy(scene_np).cuda(), torch.from_numpy(obj_np).cuda()
+
+
+def dog_stacks(cs, img, obj, cfg) -> dict:
+    """The DoG octaves of the scene's and the object's detect_object and
+    of the batch step on chip_smoke.batch_frames(img), each contiguous."""
+    from sift_tpu_torch.ops import pyramid
     dogs = {"scene": pyramid.build_dog_pyramid(
                 pyramid.build_gaussian_pyramid(img, cfg)),
             "object": pyramid.build_dog_pyramid(
                 pyramid.build_gaussian_pyramid(obj, cfg)),
             "batch": pyramid.build_dog_pyramid_batch(
-                pyramid.build_gaussian_pyramid_batch(frames, cfg))}
-    dogs = {k: [d.contiguous() for d in v] for k, v in dogs.items()}
-    rows = select_alone_rows(cs, dogs, cfg)
+                pyramid.build_gaussian_pyramid_batch(cs.batch_frames(img),
+                                                     cfg))}
+    return {k: [d.contiguous() for d in v] for k, v in dogs.items()}
+
+
+def select_worker(tree: pathlib.Path) -> dict:
+    """--select-only: the select kernel's rows alone."""
+    cs = load_tree(tree)
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    rows = select_alone_rows(cs, dog_stacks(cs, *scene_and_object(cs), cfg),
+                             cfg)
     return {"tree": str(tree), **rows, "main": _select_main(rows)}
 
 
@@ -206,15 +230,76 @@ def _select_main(rows: dict) -> dict:
                for r in rows["select"] + rows["select-batch"]}}
 
 
+# --gather-only's sweep of launch shapes: warps a CTA
+GATHER_SWEEP = (1, 2, 4, 8, 16, 32)
+
+
+def gather_launches(cs) -> list:
+    """chip_smoke.py phase 2's three K3 launches, drawn in its order, on
+    the scene's octave 0: [(label, (padded, layer, row, col, p))]."""
+    import numpy as np
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops import pyramid
+    gauss = pyramid.build_gaussian_pyramid(scene_and_object(cs)[0], cfg)[0]
+    return cs.gather_cases(gauss, cfg, np.random.default_rng(0))
+
+
+def gather_floor_ms(cs, k3, floor_lib, args) -> tuple:
+    """(device time of an empty kernel of the tree's K3 grid for these
+    arguments, the grid's warps a CTA or None): the launch floor. A tree
+    without gather_grid launches one 128-thread block a keypoint (commit
+    e823213 and before)."""
+    import torch_cuda_variants as variants
+    padded, n, p = args[0], args[1].shape[0], args[4]
+    warps, ctas, threads = None, 1, 128
+    if hasattr(k3, "gather_grid"):
+        warps = k3.launch_warps(n, p, padded.device)
+        ctas, threads = k3.gather_grid(p, warps)
+    return cs.median_ms(lambda: variants.launch_empty(
+        floor_lib, (n, ctas), threads)), warps
+
+
+def gather_worker(tree: pathlib.Path) -> dict:
+    """--gather-only: the bare K3 gather at phase 2's three shapes."""
+    cs = load_tree(tree)
+    import torch
+    import torch_cuda_variants as variants
+    from sift_tpu_torch import _build
+    from sift_tpu_torch.ops import ori_gather_cuda as k3
+    floor_lib = variants.floor_library(ROOT / "build" / "gather_floor",
+                                       _build)
+    rows = {}
+    for label, args in gather_launches(cs):
+        padded = args[0]
+        if not torch.equal(k3.gather_patches(*args),
+                           k3.gather_patches_plain(*args)):
+            raise SystemExit(f"K3 {label} differs from its plain version")
+        row = _times(cs, label, padded.shape,
+                     lambda a=args: k3.gather_patches(*a))
+        row["plain_ms"] = cs.median_ms(lambda a=args:
+                                       k3.gather_patches_plain(*a))
+        row["bound_ms"], row["bound_by"] = cs.gather_bound(*args)
+        row["floor_ms"], row["warps"] = gather_floor_ms(cs, k3, floor_lib,
+                                                        args)
+        if hasattr(k3, "gather_shape"):
+            chosen, row["sweep"] = k3.launch_warps, {}
+            try:
+                for warps in GATHER_SWEEP:
+                    k3.launch_warps = lambda *a, w=warps: w
+                    row["sweep"][warps] = cs.median_ms(
+                        lambda a=args: k3.gather_patches(*a))
+            finally:
+                k3.launch_warps = chosen
+        rows[row["label"]] = row
+    return {"tree": str(tree), "main": rows,
+            "device_ms": {k: r["device_ms"] for k, r in rows.items()}}
+
+
 def worker(tree: pathlib.Path) -> dict:
-    sys.path.insert(0, str(tree))
-    spec = importlib.util.spec_from_file_location("timing_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = load_tree(tree)
     import numpy as np
     import torch
-    from sift_tpu_torch import _build, sift
+    from sift_tpu_torch import sift
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
     from sift_tpu_torch.ops import extrema as ext
     from sift_tpu_torch.ops import pyramid
@@ -223,10 +308,7 @@ def worker(tree: pathlib.Path) -> dict:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.library()
-    scene_np, obj_np, _ = cs.full_size_inputs()
-    img = torch.from_numpy(scene_np).cuda()
-    obj = torch.from_numpy(obj_np).cuda()
+    img, obj = scene_and_object(cs)
 
     def blur_rows(wrapper, launches, where):
         return [_times(cs, f"{where} {label}", x.shape,
@@ -248,13 +330,7 @@ def worker(tree: pathlib.Path) -> dict:
     k4 = _times(cs, f"{n}x{n}", (n, n), lambda: knn2_l1_cuda(q, tm))
 
     # the candidate scan and selection at every octave
-    dogs = {"scene": pyramid.build_dog_pyramid(
-                pyramid.build_gaussian_pyramid(img, cfg)),
-            "object": pyramid.build_dog_pyramid(
-                pyramid.build_gaussian_pyramid(obj, cfg)),
-            "batch": pyramid.build_dog_pyramid_batch(
-                pyramid.build_gaussian_pyramid_batch(frames, cfg))}
-    dogs = {k: [d.contiguous() for d in v] for k, v in dogs.items()}
+    dogs = dog_stacks(cs, img, obj, cfg)
 
     def select_rows(where, route):
         return [_times(cs, f"{where} octave {o}", d.shape,
@@ -310,10 +386,13 @@ def main() -> int:
     ap.add_argument("--out", default=str(ROOT / "build" / "kernel_times.json"))
     ap.add_argument("--select-only", action="store_true",
                     help="time the select kernel's rows alone")
+    ap.add_argument("--gather-only", action="store_true",
+                    help="time the bare K3 gather alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        work = select_worker if args.select_only else worker
+        work = (gather_worker if args.gather_only else
+                select_worker if args.select_only else worker)
         print(json.dumps(work(pathlib.Path(args.worker).resolve())))
         return 0
 
@@ -324,26 +403,29 @@ def main() -> int:
     card = steps.card_name()
     print(card)
     trees = [str(pathlib.Path(t).resolve()) for t in args.trees]
+    mode = (("--gather-only",) if args.gather_only else
+            ("--select-only",) if args.select_only else ())
     runs = steps.run_in_turns(
         __file__, trees, args.rounds,
+        ("tree", "device_ms") if args.gather_only else
         ("tree", "select_per_detect_object", "select_per_batch_step")
         if args.select_only else
         ("tree", "main", "K1_per_detect_object", "K1-batch_per_batch_step"),
-        ("--select-only",) if args.select_only else ())
+        mode)
     if runs is None:
         return 1
-    keys = () if args.select_only else (
+    keys = () if mode else (
         "K1", "K1-batch", "K4", "K2", "K2-batch",
         "selection_per_detect_object", "selection_per_batch_step",
         "K3-ori", "K3-desc", "K3-ori batch", "K3-desc batch",
         "K3-ori_per_detect_object", "K3-desc_per_detect_object",
         "K3-ori_per_batch_step", "K3-desc_per_batch_step")
     keys += tuple(dict.fromkeys(k for r in runs for k in r["main"]
-                                if k.startswith("select")))
+                                if k.startswith(("select", "p="))))
     summary = {tree: {k: {m: [r["main"][k][m] for r in runs
                               if r["tree"] == tree
                               and m in r["main"].get(k, {})]
-                          for m in METHODS + ("floor_ms",)}
+                          for m in METHODS + ("floor_ms", "plain_ms")}
                       for k in keys}
                for tree in trees}
     out = pathlib.Path(args.out)

@@ -10,10 +10,10 @@ Each TREE is a directory holding sift_tpu_torch/ (the default is this
 checkout). Every tree runs in its own process, in the order A B B A for
 each round (tools/torch_profile_steps.py's in-turns runner). A process
 copies the tree's csrc/extrema.cu into build/select_split/<tree>/
-<variant>/, edits the copy, compiles it with the tree's nvcc flags (and
--Xptxas -v) into a library of its own beside an empty kernel, and loads
-it in place of the tree's kernel library under the tree's own
-select_candidates. The variants:
+<variant>/, edits the copy, compiles it into a library of its own beside
+an empty kernel and loads it in place of the tree's kernel library under
+the tree's own select_candidates (tools/torch_cuda_variants.py). The
+variants:
   - "launch": the kernel reads its frame's count and returns;
   - "keep": the count, the radix select where the design runs one and
     the kept keys gathered (the one-block design: the radix select where
@@ -46,44 +46,27 @@ summary and all lines go to --out. Needs one card and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import importlib.util
 import json
 import pathlib
 import re
-import shutil
-import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
+import torch_cuda_variants as variants  # noqa: E402  (edited builds)
+import torch_kernel_times as times  # noqa: E402  (set-up, inputs)
 import torch_profile_steps as steps  # noqa: E402  (runs trees in turns)
 
 ENTRY = "sift_extrema_select"
-FLOOR_SRC = r"""
-#include <cuda_runtime.h>
-__global__ void select_split_empty_kernel() {}
-extern "C" int select_split_empty(int bx, int by, int threads, int smem,
-                                  void* stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        select_split_empty_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  select_split_empty_kernel<<<dim3(bx, by), threads, smem,
-                              static_cast<cudaStream_t>(stream)>>>();
-  return cudaGetLastError();
-}
-"""
 _WRITE_SLOT = (
     "  const unsigned rem = i % hw;\n"
     "  layer[slot] = (int)(i / hw) + 1;\n"
     "  row[slot] = (int)(rem / W);\n"
     "  col[slot] = (int)(rem % W);\n"
     "  valid[slot] = ok;\n")
-# variant -> [(pattern, replacement)]: the first pattern of the list that
-# occurs in extrema.cu is replaced, and it must occur once
+# variant -> [(pattern, replacement)] for extrema.cu
+# (torch_cuda_variants.edit: the first pattern of the list that occurs
+# is replaced, and it must occur once)
 RULES = {
     "launch": [
         (re.escape("  const int n = count[frame];\n"),
@@ -109,47 +92,6 @@ DESIGN_VARIANTS = ("128 threads",)
 CTA_SWEEP = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 
-def edit(text: str, rules) -> str:
-    """Apply the first rule whose pattern occurs in text; it must occur
-    once."""
-    for pattern, repl in rules:
-        found = re.findall(pattern, text)
-        if found:
-            if len(found) != 1:
-                raise RuntimeError(f"{pattern!r} occurs {len(found)} times")
-            return re.sub(pattern, lambda _: repl, text)
-    raise RuntimeError(f"no rule of {[p for p, _ in rules]} matches")
-
-
-def build_variant(tree: pathlib.Path, variant: str, out: pathlib.Path,
-                  build_mod):
-    """Compile the variant's edited extrema.cu and the empty kernel into
-    out/libselect.so; returns the .so path and ptxas's report."""
-    if out.exists():
-        shutil.rmtree(out)
-    out.mkdir(parents=True)
-    text = (tree / "sift_tpu_torch" / "csrc" / "extrema.cu").read_text()
-    if variant in RULES:
-        text = edit(text, RULES[variant])
-    (out / "extrema.cu").write_text(text)
-    (out / "floor.cu").write_text(FLOOR_SRC)
-    nvcc = build_mod._nvcc()
-    flags = [*build_mod._FLAGS, "-Xptxas", "-v"]
-    names = ("extrema", "floor")
-    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", str(out / f"{n}.o"),
-                               str(out / f"{n}.cu")], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for n in names]
-    reports = [p.communicate()[0] for p in procs]
-    for p, rep in zip(procs, reports):
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {variant}:\n{rep}")
-    lib = out / "libselect.so"
-    subprocess.run([nvcc, *build_mod._FLAGS, "-shared", "-o", str(lib),
-                    *(str(out / f"{n}.o") for n in names)], check=True)
-    return lib, reports[0]
-
-
 def select_ptxas(report: str) -> list:
     """ptxas's lines for the select kernels."""
     lines, keep = [], False
@@ -159,16 +101,6 @@ def select_ptxas(report: str) -> list:
         if keep and "ptxas" in line:
             lines.append(line.strip())
     return lines
-
-
-def load(lib_path, build_mod):
-    lib = ctypes.CDLL(str(lib_path))
-    fn = getattr(lib, ENTRY)
-    fn.argtypes = list(build_mod._SIGNATURES[ENTRY])
-    fn.restype = ctypes.c_int
-    lib.select_split_empty.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.select_split_empty.restype = ctypes.c_int
-    return lib
 
 
 def launch_shape(ext, tree: pathlib.Path, frames: int, cap: int,
@@ -188,28 +120,13 @@ def launch_shape(ext, tree: pathlib.Path, frames: int, cap: int,
 
 
 def worker(tree: pathlib.Path) -> dict:
-    sys.path.insert(0, str(tree))
-    spec = importlib.util.spec_from_file_location("timing_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = times.load_tree(tree)
     import torch
     from sift_tpu_torch import _build
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
     from sift_tpu_torch.ops import extrema_cuda as ext
-    from sift_tpu_torch.ops import pyramid
 
-    _build.library()
-    scene_np, obj_np, _ = cs.full_size_inputs()
-    img = torch.from_numpy(scene_np).cuda()
-    obj = torch.from_numpy(obj_np).cuda()
-    frames = cs.batch_frames(img)
-    dogs = {"scene": pyramid.build_dog_pyramid(
-                pyramid.build_gaussian_pyramid(img, cfg)),
-            "object": pyramid.build_dog_pyramid(
-                pyramid.build_gaussian_pyramid(obj, cfg)),
-            "batch": pyramid.build_dog_pyramid_batch(
-                pyramid.build_gaussian_pyramid_batch(frames, cfg))}
+    dogs = times.dog_stacks(cs, *times.scene_and_object(cs), cfg)
     launches = []
     for where, octaves in dogs.items():
         for o, d in enumerate(octaves):
@@ -230,17 +147,13 @@ def worker(tree: pathlib.Path) -> dict:
 
     def floors(lib):
         out = {}
-        stream = torch.cuda.current_stream().cuda_stream
         for label, keys, count, cap, hw in launches:
             grid, threads, smem = launch_shape(
                 ext, tree, keys.shape[0], cap, nl * hw[0] * hw[1], sms)
-
-            def empty(grid=grid, threads=threads, smem=smem):
-                err = lib.select_split_empty(*grid, threads, smem, stream)
-                if err:
-                    raise RuntimeError(f"empty kernel: CUDA error {err}")
-            out[label] = {"ms": cs.median_ms(empty), "grid": list(grid),
-                          "threads": threads, "smem": smem}
+            out[label] = {"ms": cs.median_ms(
+                lambda g=grid, t=threads, m=smem:
+                variants.launch_empty(lib, g, t, m)),
+                "grid": list(grid), "threads": threads, "smem": smem}
         return out
 
     tag = re.sub(r"[^A-Za-z0-9]+", "_", str(tree.resolve()))[-60:]
@@ -248,17 +161,16 @@ def worker(tree: pathlib.Path) -> dict:
               "counts": {label: count.tolist()
                          for label, _, count, _, _ in launches},
               "variants": {}}
-    real_library = _build.library
-    try:
-        src = (tree / "sift_tpu_torch" / "csrc" / "extrema.cu").read_text()
-        for variant in VARIANTS + tuple(
-                v for v in DESIGN_VARIANTS
-                if any(re.search(p, src) for p, _ in RULES[v])):
-            lib_path, report = build_variant(
-                tree, variant, ROOT / "build" / "select_split" / tag /
-                variant, _build)
-            lib = load(lib_path, _build)
-            _build.library = lambda lib=lib: lib
+    src = (tree / "sift_tpu_torch" / "csrc" / "extrema.cu").read_text()
+    for variant in VARIANTS + tuple(
+            v for v in DESIGN_VARIANTS
+            if any(re.search(p, src) for p, _ in RULES[v])):
+        rules = {"extrema.cu": RULES[variant]} if variant in RULES else {}
+        lib_path, _, report = variants.build_variant(
+            tree, ("extrema.cu",), rules,
+            ROOT / "build" / "select_split" / tag / variant, _build)
+        with variants.in_place_of_library(
+                _build, variants.load(lib_path, _build, (ENTRY,))) as lib:
             row = {"ptxas": select_ptxas(report), "ms": time_all(lib)}
             if variant == "whole":
                 row["floor"] = floors(lib)
@@ -272,9 +184,7 @@ def worker(tree: pathlib.Path) -> dict:
                             row["cta_sweep"][ctas] = time_all(lib)
                     finally:
                         ext.select_shape = chosen
-            result["variants"][variant] = row
-    finally:
-        _build.library = real_library
+        result["variants"][variant] = row
     return result
 
 
