@@ -2255,13 +2255,15 @@ def phase_mapping_cli_size(textures) -> None:
     renderer's default 24 frames of 480x640 (sift_tpu/sfm/mapping.py:424);
     at least 90 % registered and one closure; the wall time of one call
     after a warm-up (one, not a median of several: it keeps the whole
-    script, phase 7 included, near 400 s on a slow host), by stage, each
-    stage ending in a synchronisation; then the device busy time and
-    device events of one call (torch.profiler)."""
+    script, phase 7 included, near 400 s on a slow host), by stage: the
+    host ms of run_mapping's four spans (utils.profiling; each stage
+    ends by reading its results on the host); then the device busy time
+    and device events of one call (torch.profiler)."""
     from sift_tpu_torch.sfm.mapping import (mapping_ate,
                                             render_corner_sequence,
                                             run_mapping)
-    from sift_tpu_torch.utils.profiling import StageTimer
+    import torch
+    from sift_tpu_torch.utils import profiling
     n_frames, hw = MAP_CLI
     frames, k, gt = render_corner_sequence(n_frames=n_frames, size=hw,
                                            textures=textures)
@@ -2272,14 +2274,17 @@ def phase_mapping_cli_size(textures) -> None:
     check(res.stats["n_registered"] >= 0.9 * n_frames,
           f"{res.stats['n_registered']} of {n_frames} frames registered")
     check(res.stats["n_closures"] >= 1, "no loop closure")
-    timer = StageTimer()
-    t0 = time.perf_counter()
-    run_mapping(frames, k, timer=timer)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    stages = timer.summary()
+    profiling.clear()
+    with profiling.tracing():
+        t0 = time.perf_counter()
+        run_mapping(frames, k)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    stages = {n: v["total_ms"] for n, v in profiling.summary().items()
+              if n.startswith("mapping.")}
     print(f"phase 6c timing (one call after a warm-up): run_mapping "
           f"{wall_ms:.1f} ms; "
-          + ", ".join(f"{s} {v * 1e3:.1f} ms" for s, v in stages.items()))
+          + ", ".join(f"{s} {v:.1f} ms" for s, v in stages.items()))
     busy, events, ops = _profile_busy(lambda: run_mapping(frames, k))
     print(f"phase 6c profile of one run_mapping: device busy {busy:.1f} ms "
           f"({100.0 * (1.0 - busy / wall_ms):.1f} % idle over the timed "

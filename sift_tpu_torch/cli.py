@@ -8,9 +8,11 @@ Usage mirrors the reference (`./sift <scene> <object>`) and
         [--device cuda]
 
 The visualization is written to a file with --out. Prints match and
-homography stats and, with --timing, per-stage wall times
-(utils.profiling.StageTimer). An octave whose output batch fills bumps
-utils.logger.COUNTERS' out_cap_saturated/<scene|object>/octave<o>, and
+homography stats and, with --timing, the host ms of every span
+(utils.profiling.report): the CLI's own stages, each ended by a
+synchronisation, and the program's stages inside them. An octave whose
+output batch fills bumps utils.logger.COUNTERS'
+out_cap_saturated/<scene|object>/octave<o>, and
 with --diagnose-caps one whose NMS survivors exceed its candidate cap
 bumps detect_cap_saturated/...; both also log a warning. The default
 device is CUDA, which must be present; a CPU run, on the plain PyTorch
@@ -31,8 +33,9 @@ from sift_tpu_torch import sift as _sift
 from sift_tpu_torch.config import DEFAULT_CONFIG
 from sift_tpu_torch.ops import pyramid as _pyr
 from sift_tpu_torch.pipeline import detect_object
+from sift_tpu_torch.utils import profiling
 from sift_tpu_torch.utils.logger import COUNTERS, get_logger
-from sift_tpu_torch.utils.profiling import StageTimer
+from sift_tpu_torch.utils.profiling import span
 
 _LOG = get_logger("cli")
 
@@ -87,20 +90,21 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("CUDA is not available; pass --device cpu for a CPU run")
 
-    timer = StageTimer(enabled=True)
-    with timer.stage("ingest"):
-        scene = torch.from_numpy(
-            sio.read_image(args.scene, resized=not args.no_resize)).to(device)
-        obj = torch.from_numpy(sio.read_image(args.object)).to(device)
-        timer.sink((scene, obj))
+    profiling.clear()
+    with profiling.tracing():
+        with span("cli.ingest"):
+            scene = torch.from_numpy(sio.read_image(
+                args.scene, resized=not args.no_resize)).to(device)
+            obj = torch.from_numpy(sio.read_image(args.object)).to(device)
+            profiling.sync((scene, obj))
 
-    cfg = dataclasses.replace(DEFAULT_CONFIG, match_ratio=args.ratio)
-    with timer.stage("pipeline(first run)"):
-        det = detect_object(scene, obj, cfg=cfg, device=device)
-        timer.sink(det.corners)
-    with timer.stage("pipeline(steady)"):
-        det = detect_object(scene, obj, cfg=cfg, device=device)
-        timer.sink(det.corners)
+        cfg = dataclasses.replace(DEFAULT_CONFIG, match_ratio=args.ratio)
+        with span("cli.first_run"):
+            det = detect_object(scene, obj, cfg=cfg, device=device)
+            profiling.sync(det.corners)
+        with span("cli.steady"):
+            det = detect_object(scene, obj, cfg=cfg, device=device)
+            profiling.sync(det.corners)
 
     # a (near-)full octave batch means out_caps may have truncated (the
     # reference emits unboundedly, src/sift.cpp:538)
@@ -139,7 +143,7 @@ def main(argv=None) -> int:
         print("corners in scene: "
               + ", ".join(f"({x:.1f},{y:.1f})" for x, y in c))
     if args.timing:
-        print(timer.report())
+        print(profiling.report())
     if args.out:
         _draw(args.scene, args.object, det, args.out)
         print(f"wrote {args.out}")

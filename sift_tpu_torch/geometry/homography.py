@@ -25,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from sift_tpu_torch.geometry.linalg import smallest_eigvec
+from sift_tpu_torch.utils.profiling import span
 
 
 class HomographyResult(NamedTuple):
@@ -181,33 +182,34 @@ def find_homography_ransac(src: torch.Tensor, dst: torch.Tensor,
     Deterministic for a given seed and device. samples: optional
     (n_hypotheses, 4) indices that replace the drawn ones.
     """
-    n = src.shape[0]
-    src = src.to(torch.float32)
-    dst = dst.to(torch.float32)
-    if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=src.device)
-    samples = draw_samples(valid, n_hypotheses, 4, seed, samples)
-    thr2 = threshold * threshold
+    with span("geometry.ransac"):
+        n = src.shape[0]
+        src = src.to(torch.float32)
+        dst = dst.to(torch.float32)
+        if valid is None:
+            valid = torch.ones((n,), dtype=torch.bool, device=src.device)
+        samples = draw_samples(valid, n_hypotheses, 4, seed, samples)
+        thr2 = threshold * threshold
 
-    hs = _dlt4(src[samples], dst[samples])                  # (B, 3, 3)
-    inl = (_sq_transfer_err(hs, src, dst) < thr2) & valid   # (B, N)
-    finite = hs.isfinite().flatten(1).all(1)
-    counts = torch.where(finite, inl.sum(1, dtype=torch.int32), 0)
-    best = torch.argmax(counts)                             # first max
-    h_best = hs[best]
-    ok = counts[best] >= 4
+        hs = _dlt4(src[samples], dst[samples])                  # (B, 3, 3)
+        inl = (_sq_transfer_err(hs, src, dst) < thr2) & valid   # (B, N)
+        finite = hs.isfinite().flatten(1).all(1)
+        counts = torch.where(finite, inl.sum(1, dtype=torch.int32), 0)
+        best = torch.argmax(counts)                             # first max
+        h_best = hs[best]
+        ok = counts[best] >= 4
 
-    inliers = (_sq_transfer_err(h_best, src, dst) < thr2) & valid
-    if refine:
-        h_ref = _dlt_masked(src, dst, inliers)
-        h_ref = _gauss_newton(h_ref, src, dst, inliers)
-        # accept the refinement only if it keeps at least as many inliers
-        inl_ref = (_sq_transfer_err(h_ref, src, dst) < thr2) & valid
-        better = (inl_ref.sum() >= inliers.sum()) & h_ref.isfinite().all()
-        h_best = torch.where(better, h_ref, h_best)
-        inliers = torch.where(better, inl_ref, inliers)
+        inliers = (_sq_transfer_err(h_best, src, dst) < thr2) & valid
+        if refine:
+            h_ref = _dlt_masked(src, dst, inliers)
+            h_ref = _gauss_newton(h_ref, src, dst, inliers)
+            # accept the refinement only if it keeps at least as many inliers
+            inl_ref = (_sq_transfer_err(h_ref, src, dst) < thr2) & valid
+            better = (inl_ref.sum() >= inliers.sum()) & h_ref.isfinite().all()
+            h_best = torch.where(better, h_ref, h_best)
+            inliers = torch.where(better, inl_ref, inliers)
 
-    eye = torch.eye(3, dtype=torch.float32, device=src.device)
-    h_best = torch.where(ok, h_best, eye)
-    return HomographyResult(h_best, inliers & ok,
-                            inliers.sum(dtype=torch.int32) * ok, ok)
+        eye = torch.eye(3, dtype=torch.float32, device=src.device)
+        h_best = torch.where(ok, h_best, eye)
+        return HomographyResult(h_best, inliers & ok,
+                                inliers.sum(dtype=torch.int32) * ok, ok)

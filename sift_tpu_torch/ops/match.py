@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda
+from sift_tpu_torch.utils.profiling import span
 
 _SENTINEL = 1.0e6  # masked train descriptor value; L1 dist >= 1e8
 
@@ -66,14 +67,16 @@ def match_ratio(query: torch.Tensor, train: torch.Tensor,
                 ratio: float = 0.86) -> Matches:
     """knnMatch(k=2) + Lowe ratio test (src/main.cpp:25-40); of one
     pair, or of G pairs along a leading axis in one K4 launch."""
-    r = knn2_l1(query, train, t_valid)
-    good = r.d1 <= ratio * r.d2
-    # a best hit on a sentinel row matched nothing real; with < 2 valid
-    # train rows d2 is the sentinel and the ratio test would pass
-    # vacuously -- BFMatcher k=2 finds no pair either
-    good = good & (r.d1 < _SENTINEL) & (r.d2 < _SENTINEL)
-    if q_valid is not None:
-        good = good & q_valid
-    n = query.shape[-2]
-    qidx = torch.arange(n, dtype=torch.int32, device=query.device)
-    return Matches(qidx.expand(r.idx.shape).contiguous(), r.idx, r.d1, good)
+    with span("match.ratio"):
+        r = knn2_l1(query, train, t_valid)
+        good = r.d1 <= ratio * r.d2
+        # a best hit on a sentinel row matched nothing real; with < 2
+        # valid train rows d2 is the sentinel and the ratio test would
+        # pass vacuously -- BFMatcher k=2 finds no pair either
+        good = good & (r.d1 < _SENTINEL) & (r.d2 < _SENTINEL)
+        if q_valid is not None:
+            good = good & q_valid
+        n = query.shape[-2]
+        qidx = torch.arange(n, dtype=torch.int32, device=query.device)
+        return Matches(qidx.expand(r.idx.shape).contiguous(), r.idx, r.d1,
+                       good)

@@ -48,6 +48,7 @@ from sift_tpu_torch.parallel.frames import gather_keypoints
 from sift_tpu_torch.parallel.mesh import Mesh, all_gather, axis_index, \
     axis_size, ppermute
 from sift_tpu_torch.types import Keypoints
+from sift_tpu_torch.utils.profiling import span
 
 
 def _true_sizes(n: int, n_octaves: int) -> List[int]:
@@ -123,12 +124,15 @@ def _tiled_octave(band: torch.Tensor, octave: int, gr0: int, h_true: int,
     dog = gauss[1:] - gauss[:-1]
 
     box = candidate_box(hb, halo, gr0, h_true, w_true, dog.shape[1:], cfg)
-    cands = ext.top_candidates(dog, cfg.detect_caps[octave], cfg, box=box)
+    with span("sift.scan", octave=octave):
+        cands = ext.top_candidates(dog, cfg.detect_caps[octave], cfg,
+                                   box=box)
     row_bounds = (halo - gr0, h_true - gr0 + halo)  # local rows of the image
     kp = sift._octave_tail(gauss, dog, *cands, octave, cfg,
                            cfg.out_caps[octave], row_bounds=row_bounds)
-    desc = desc_mod.descriptors_octave(gauss, kp, cfg,
-                                       row_bounds=row_bounds)
+    with span("sift.descr", octave=octave):
+        desc = desc_mod.descriptors_octave(gauss, kp, cfg,
+                                           row_bounds=row_bounds)
     kp = dataclasses.replace(kp, y=kp.y + float(gr0p * (1 << octave)),
                              r=kp.r + gr0p)
     # next octave base: INTER_NEAREST decimation of the core of layer nL
@@ -151,7 +155,8 @@ def _tail_octaves(base: torch.Tensor, start_octave: int, cfg: SIFTConfig):
         if sift._octave_usable(gauss.shape[1:], cfg):
             kp = sift.detect_octave(gauss, dog, o, cfg.detect_caps[o], cfg,
                                     cfg.out_caps[o])
-            d = desc_mod.descriptors_octave(gauss, kp, cfg)
+            with span("sift.descr", octave=o):
+                d = desc_mod.descriptors_octave(gauss, kp, cfg)
         else:
             kp, d = sift._empty_octave(cfg.out_caps[o], cfg, base.device)
         kp_parts.append(kp)

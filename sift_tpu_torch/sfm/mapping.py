@@ -46,7 +46,7 @@ from sift_tpu_torch.sfm.loopclosure import LoopClosure, find_loop_closures
 from sift_tpu_torch.sfm.posegraph import PoseGraph, optimize_pose_graph
 from sift_tpu_torch.utils.caps import pow2_cap
 from sift_tpu_torch.utils.metrics import ate_rmse, camera_centers
-from sift_tpu_torch.utils.profiling import StageTimer
+from sift_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -364,38 +364,33 @@ def run_mapping(frames: np.ndarray, k: np.ndarray,
                 export_prefix: Optional[str] = None,
                 sampler: Optional[Sampler] = None,
                 proj=None,
-                device=None,
-                timer: Optional[StageTimer] = None) -> MappingResult:
+                device=None) -> MappingResult:
     """Run the full pipeline on an (F, H, W) image sequence.
 
     `k` is the (3, 3) pinhole intrinsics matrix of the sequence. It
-    runs on `device` (default CUDA). `timer`, when given, records the
-    wall time of four stages, each ending in a device synchronisation:
-    front_end (detect + sequential match), reconstruct, loop_closure
-    (closures, their PnP edges, the pose graph) and final_ba (with the
-    export).
+    runs on `device` (default CUDA), in four spans of utils.profiling:
+    mapping.front_end (detect + sequential match), mapping.reconstruct,
+    mapping.loop_closure (closures, their PnP edges, the pose graph) and
+    mapping.final_ba (with the export). Each stage ends by reading its
+    results on the host, so its span also holds its device work.
     """
     from sift_tpu_torch.config import DEFAULT_CONFIG
     cfg = cfg or DEFAULT_CONFIG
     dev = resolve_device(device)
-    timer = timer or StageTimer(enabled=False)
-    marker = torch.zeros(0, device=dev)     # timer.sink: sync dev
 
-    with timer.stage("front_end"):
+    with span("mapping.front_end"):
         descs, valids, xy = _detect_all(frames, cfg, dev)
         fx, fy = k[0, 0], k[1, 1]
         cx, cy = k[0, 2], k[1, 2]
         xy_n = [np.stack([(p[:, 0] - cx) / fx, (p[:, 1] - cy) / fy], 1)
                 .astype(np.float32) for p in xy]
         seq = _sequential_matches(descs, valids, pair_window, ratio)
-        timer.sink(marker)
 
-    with timer.stage("reconstruct"):
+    with span("mapping.reconstruct"):
         rec = reconstruct(xy_n, seq, ransac_threshold=ransac_threshold,
                           ba_window=ba_window, sampler=sampler, device=dev)
-        timer.sink(marker)
 
-    with timer.stage("loop_closure"):
+    with span("mapping.loop_closure"):
         closures = find_loop_closures(
             descs, valids, xy_n, min_gap=min_gap,
             candidates_per_frame=closure_candidates,
@@ -407,9 +402,8 @@ def run_mapping(frames: np.ndarray, k: np.ndarray,
             cameras_pg = _pose_graph_correct(rec, closure_edges, device=dev)
         else:
             cameras_pg = rec.cameras.copy()
-        timer.sink(marker)
 
-    with timer.stage("final_ba"):
+    with span("mapping.final_ba"):
         # final global BA: closure matches join the track graph as new
         # observations of existing tracks; cameras start from the
         # pose-graph-corrected trajectory
@@ -475,7 +469,6 @@ def run_mapping(frames: np.ndarray, k: np.ndarray,
                 tracks=tracks, reproj_rmse=rmse)
             result.stats["export"] = save_reconstruction(export_prefix,
                                                          final)
-        timer.sink(marker)
     return result
 
 

@@ -1,6 +1,7 @@
 """The port's utils against sift_tpu.utils (metrics and the capacity
-ladder give equal results on seeded inputs), the counters and the stage
-timer as specified, and the CLI's saturation counters."""
+ladder give equal results on seeded inputs), the counters and the span
+report as specified, and the CLI's saturation counters and span
+report."""
 
 import dataclasses
 import logging
@@ -113,27 +114,28 @@ def test_logger_names_and_configure():
         root.setLevel(logging.NOTSET)
 
 
-def test_stage_timer(monkeypatch):
-    timer = tprof.StageTimer()
-    kp = Keypoints.zeros(4)
-    # CPU tensors need no synchronisation
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda *a: pytest.fail("synchronised a CPU tensor"))
-    for _ in range(3):
-        with timer.stage("detect"):
-            timer.sink({"kp": kp, "d": [torch.zeros(3)]})
-    with timer.stage("match"):
-        pass
-    assert len(timer.times["detect"]) == 3 and len(timer.times["match"]) == 1
-    summary = timer.summary()
-    assert summary["detect"] == float(np.median(timer.times["detect"]))
-    lines = timer.report().splitlines()
-    assert [ln.split(":")[0].strip() for ln in lines] == ["detect", "match"]
-    assert all(ln.endswith(" ms") for ln in lines)
-    off = tprof.StageTimer(enabled=False)
-    with off.stage("x"):
-        pass
-    assert off.times == {}
+def test_span_report(monkeypatch):
+    tprof.clear()
+    clock = iter(range(0, 10 ** 12, 250_000))      # 0.25 ms a clock read
+    monkeypatch.setattr(tprof.time, "time_ns", lambda: next(clock))
+    with tprof.tracing():
+        for _ in range(3):
+            with tprof.span("detect"):
+                with tprof.span("sift.refine", octave=0):
+                    pass
+        with tprof.span("match"):
+            pass
+    summary = tprof.summary()
+    assert list(summary) == ["detect", "sift.refine", "sift.refine/octave0",
+                             "match"]
+    assert summary["detect"] == {"calls": 3, "total_ms": 2.25,
+                                 "self_ms": 1.5}
+    assert summary["sift.refine/octave0"]["total_ms"] == 0.75
+    lines = tprof.report().splitlines()
+    assert [ln.split(":")[0].strip() for ln in lines] == list(summary)
+    assert lines[0].split(":")[1].split() == [
+        "2.250", "ms", "total", "1.500", "ms", "self", "3", "calls"]
+    tprof.clear()
 
 
 def test_sync_finds_every_tensor():
@@ -149,12 +151,18 @@ def test_sync_finds_every_tensor():
     tprof.sync(tree)                    # CPU only: returns at once
 
 
-def test_torch_trace(tmp_path):
-    with tprof.torch_trace(None):
+def test_tracing_blocks_nest():
+    tprof.clear()
+    with tprof.tracing():
+        with tprof.tracing():
+            with tprof.span("inner"):
+                pass
+        with tprof.span("still on"):       # the outer block is open
+            pass
+    with tprof.span("off"):
         pass
-    with tprof.torch_trace(str(tmp_path)):
-        torch.ones(8).sum()
-    assert any(p.name.endswith(".json") for p in tmp_path.iterdir())
+    assert [s.name for s in tprof.spans()] == ["inner", "still on"]
+    tprof.clear()
 
 
 def _textured(h, w, seed):
@@ -173,7 +181,7 @@ def _textured(h, w, seed):
 def test_cli_counts_saturated_octaves(tmp_path, monkeypatch, capsys):
     # with tiny caps, octave 0 fills on both images: the CLI bumps
     # out_cap_saturated/... and, under --diagnose-caps,
-    # detect_cap_saturated/...; --timing prints the StageTimer report
+    # detect_cap_saturated/...; --timing prints the span report
     cv2 = pytest.importorskip("cv2")
     from sift_tpu_torch import cli
     cfg = dataclasses.replace(cli.DEFAULT_CONFIG,
@@ -192,6 +200,16 @@ def test_cli_counts_saturated_octaves(tmp_path, monkeypatch, capsys):
         assert counts.get(f"out_cap_saturated/{name}/octave0") == 1.0
         assert counts.get(f"detect_cap_saturated/{name}/octave0") == 1.0
     lines = capsys.readouterr().out.splitlines()
-    stages = [ln.split(":")[0].strip() for ln in lines if ln.endswith(" ms")]
-    assert stages == ["ingest", "pipeline(first run)", "pipeline(steady)"]
+    report = {ln.split(":")[0].strip(): ln.split(":")[1].split()
+              for ln in lines if ln.endswith(" calls")}
+    assert list(report)[:3] == ["cli.ingest", "cli.first_run",
+                                "pipeline.detect_object"]
+    for name, calls in (("cli.ingest", 1), ("cli.first_run", 1),
+                        ("cli.steady", 1), ("pipeline.detect_object", 2),
+                        ("sift.detect_and_compute", 4), ("match.ratio", 2),
+                        ("geometry.ransac", 2), ("sift.refine/octave0", 4)):
+        assert int(report[name][6]) == calls, name
+    # the CLI's stages hold the program's: self time at most the total
+    first = report["cli.first_run"]
+    assert float(first[0]) >= float(first[3]) >= 0.0
     tlogger.COUNTERS.reset()
