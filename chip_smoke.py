@@ -69,15 +69,24 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      gap slots pass the border rows; each of the two kernels against its
      own plain version; all route calls again with torch.sort removed
      and torch.cuda.set_sync_debug_mode("error"); both kernels timed at
-     every octave, with sums per detect_object and per batch step;
+     every octave, with sums per detect_object and per batch step; the
+     refine kernel against refine_candidates_plain, bit for bit in all
+     eight fields of every slot (floats by their bits), at every usable
+     octave of detect_object and of the B = 8 batch step on the
+     benchmark's seeded inputs (benchmark/inputs/recipes.py), each batch
+     frame also equal to the single-frame launch, two launches equal, on
+     a row band viewed out of octave 0 (not contiguous) and on the
+     planted cubes of tests/test_torch_refine_kernel.py, timed at every
+     octave beside its launch floor and byte bound (the plain version at
+     octave 0, B = 1 and B = 8);
   3. the whole path on a 480x640 synthetic pair, CPU (plain versions)
      against the card (kernels);
   4. the main path at 1920x1080: a 640x480 textured object warped into
      a synthetic scene by a known homography must be found, with its
      corners within 2 px; K1 and K4 must have launched, the compact scan,
-     the select kernel, K3-ori and K3-desc once per usable octave of
-     each frame, and the dense K2 and the bare gather K3 not at all; the
-     same path under the bf16 descriptor arm: keypoints equal, 99 % of
+     the select kernel, refine, K3-ori and K3-desc once per usable
+     octave of each frame, and the dense K2 and the bare gather K3 not
+     at all; the same path under the bf16 descriptor arm: keypoints equal, 99 % of
      the descriptor rows within 2e-2 L1 of the f32 run's and every row
      within 5e-2, corners within 2 px; then the steady-state time per detect_object and the
      frames/s of bench.py's 1080p pair step (two detect+describe, one
@@ -86,7 +95,8 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      17 i columns): bench.py's batch step, detect_and_compute_batch plus
      the 7 consecutive-frame matches in one batched match_ratio, must
      launch K1-batch, K4 once, the compact scan, the select kernel,
-     K3-ori and K3-desc once per usable octave for all 8 frames, and not
+     refine, K3-ori and K3-desc once per usable octave for all 8 frames,
+     and not
      the single-frame K1, the dense K2 or K2-batch; every row of the
      batch must equal detect_and_compute on its frame, and each pair's
      matches match_ratio on that pair (train_idx, good, distance bit for
@@ -99,8 +109,8 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      the card, must meet the four mapping gates of sift_tpu_torch.eval
      (registered >= 0.9 F, >= 1 closure, ate_final <= 0.07, reproj_rmse
      <= 4e-3) and write both export files, with the compact scan, the
-     select, K3-ori and K3-desc launched once per usable octave of each
-     frame, K4 once per sequential pair (42) and K1-batch, the dense
+     select, refine, K3-ori and K3-desc launched once per usable octave
+     of each frame, K4 once per sequential pair (42) and K1-batch, the dense
      K2/K2-batch and the bare gather K3 never; 6b runs tests/
      test_mapping.py's 10 frames of 200x268 on the CPU (plain versions)
      and on the card with one shared RANSAC sampler (a seeded CPU
@@ -130,8 +140,9 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      checkpoint, 1 NCCL rank resumes and finishes with a lower RMSE.
      Phase 2 also holds, at the 4K split's band shape at world 2
      (1080 + 2 x 64 rows x 3840, both bands), the boxed compact scan and
-     select under torch.equal and the row-windowed K3-ori and K3-desc at
-     rtol 1e-5 against their plain versions.
+     select under torch.equal, refine with the band's row_bounds bit for
+     bit, and the row-windowed K3-ori and K3-desc at rtol 1e-5 against
+     their plain versions.
   8. the port on the card against the NumPy oracle of the reference
      algorithm on the host (sift_tpu_torch/oracle/cpu_sift.py), under
      tests/test_detect.py's gates (oracle keypoints recalled >= 0.97 by
@@ -144,7 +155,8 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      (K3-ori and K3-desc at N = 4096 in octave 0); 8c match_ratio of a
      288x384 crop of 8b's frame against the frame, against the oracle's
      match_l1_ratio. Each launches K1 once for the base blur and once
-     per octave, the compact scan, the select, K3-ori and K3-desc once
+     per octave, the compact scan, the select, refine, K3-ori and
+     K3-desc once
      per usable octave, K4 once in 8c, and nothing else; each line
      prints the oracle's host seconds and the card's milliseconds.
 
@@ -176,7 +188,15 @@ EXTRA_SLOTS = 64     # phase-2 K3-ori/K3-desc slots starting outside the image
 SMALL_SLOTS = 64     # phase-2 K3-ori/K3-desc small launch (octave 4's cap)
 TRAP_SLOTS = 16      # phase-2 batched K3: invalid slots a frame at layer -1
 KERNELS = ("K1", "K1-batch", "K2", "K2-batch", "K2-compact", "K2-select",
-           "K3", "K3-ori", "K3-desc", "K4")
+           "K3", "K3-ori", "K3-desc", "K4", "refine")
+# phase 2's refine check: the seed of the benchmark's recipes
+# (benchmark/inputs/recipes.py) for its 1080p scene, 640x480 object and
+# B = 8 pan
+REFINE_SEED = 2_718_281_828
+# csrc/refine.cu's bytes a slot: its candidate (3 int32 and a bool) in,
+# the eight Refined fields (3 int32, 4 float32 and a bool) out, and the
+# 19 DoG values of one cube
+REFINE_BYTES_PER_SLOT = 13 + 29 + 19 * 4
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 # The 67 TFLOP/s count an FMA as two operations. An operation with no
@@ -833,6 +853,7 @@ def phase_kernels(scene_np: np.ndarray, obj_np: np.ndarray,
         pyramid.build_gaussian_pyramid(img_obj, cfg)), dogsb, record)
     dogb0 = dogsb[0]
     del dogsb
+    phase_refine(record)
 
     phase_gather(octs[0], cfg, rng, record)
 
@@ -1105,6 +1126,203 @@ def select_edge_counts(cap: int, ctas: int, stage: int, threads: int):
     for per in (32, threads):
         counts |= {ctas * per - 1, ctas * per, ctas * per + 1}
     return sorted(c for c in counts if c >= 0)
+
+
+def refined_equal(got, want) -> bool:
+    """Every field of every slot of two Refined results equal, floats by
+    their bits."""
+    import torch
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               if g.dtype == torch.float32 else torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+def refined_err(got, want) -> float:
+    """The largest difference between two Refined results' fields (NaN
+    where both are NaN counts as none)."""
+    err = 0.0
+    for g, w in zip(got, want):
+        d = (g.double() - w.double()).abs()
+        d = d[~(g.double().isnan() & w.double().isnan())]
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def refine_launches(cfg) -> list:
+    """Every refine launch of detect_object on the benchmark's seeded
+    1080p scene and 640x480 object, and of the B = 8 batch step on its
+    seeded pan (benchmark/inputs/recipes.py, REFINE_SEED): [(label, DoG
+    stack, candidates)] from the card's scan, one entry per usable
+    octave."""
+    import torch
+    from benchmark.inputs import recipes
+    from sift_tpu_torch import sift
+    from sift_tpu_torch.ops import extrema as ext
+    from sift_tpu_torch.ops import pyramid
+    scene, obj, _, _ = recipes.object_scene(SCENE_HW, OBJECT_HW, REFINE_SEED)
+    pan = recipes.pan_frames(SCENE_HW, OBJECT_HW, BATCH, ROLL_STEP,
+                             REFINE_SEED)
+    out = []
+    for name, img in (("scene", scene), ("object", obj)):
+        octs = pyramid.build_gaussian_pyramid(torch.from_numpy(img).cuda(),
+                                              cfg)
+        for o, d in enumerate(pyramid.build_dog_pyramid(octs)):
+            if sift._octave_usable(octs[o].shape[1:], cfg):
+                out.append((f"{name} octave {o}", d,
+                            ext.top_candidates(d, cfg.detect_caps[o], cfg)))
+    octs = pyramid.build_gaussian_pyramid_batch(torch.from_numpy(pan).cuda(),
+                                                cfg)
+    for o, d in enumerate(pyramid.build_dog_pyramid_batch(octs)):
+        if sift._octave_usable(octs[o].shape[2:], cfg):
+            out.append((f"batch octave {o}", d,
+                        ext.top_candidates_batch(d, cfg.detect_caps[o], cfg)))
+    return out
+
+
+def phase_refine(record) -> None:
+    """Phase 2, the refine kernel (csrc/refine.cu) against
+    refine_candidates_plain on the card, bit for bit in all eight fields
+    of every slot: at every usable octave of detect_object (the
+    benchmark's seeded 1080p scene and 640x480 object) and of the B = 8
+    batch step (its seeded pan; each frame also the single-frame launch
+    on it), on a stack that is not contiguous (a row band viewed out of
+    octave 0, with row_bounds past it) and on the planted cubes of
+    tests/test_torch_refine_kernel.py; two launches bit-identical. Timed
+    at octave 0, B = 1 and B = 8, beside its launch floor (an empty
+    kernel of its grid), its byte bound and the plain version, with the
+    sums per detect_object and per batch step."""
+    import torch
+    from sift_tpu_torch import _build
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops import refine as ref
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_cuda_variants as variants
+    floor_lib = variants.floor_library(ROOT / "build" / "smoke_floor",
+                                       _build)
+
+    rows = {}
+    for label, dog, cands in refine_launches(cfg):
+        got = ref.refine_candidates(dog, *cands, cfg)
+        again = ref.refine_candidates(dog, *cands, cfg)
+        want = ref.refine_candidates_plain(dog, *cands, cfg)
+        torch.cuda.synchronize()
+        check(refined_equal(got, want), f"refine {label}: the kernel differs "
+              f"from refine_candidates_plain (max {refined_err(got, want)})")
+        check(refined_equal(got, again), f"refine {label}: two launches "
+              f"differ")
+        if dog.dim() == 4:
+            check(all(refined_equal(
+                tuple(a[b] for a in got),
+                ref.refine_candidates(dog[b], *(a[b] for a in cands), cfg))
+                for b in range(dog.shape[0])),
+                f"refine {label}: a frame differs from its single-frame "
+                f"launch")
+        slots = cands[0].numel()
+        ms = median_ms(lambda: ref.refine_candidates(dog, *cands, cfg))
+        floor = median_ms(lambda: variants.launch_empty(
+            floor_lib, (-(-slots // ref.KERNEL_THREADS), 1),
+            ref.KERNEL_THREADS))
+        bnd = bound_ms(REFINE_BYTES_PER_SLOT * slots, 0.0)
+        pms = (median_ms(lambda: ref.refine_candidates_plain(dog, *cands,
+                                                             cfg))
+               if label.endswith("octave 0") else None)
+        rows[label] = (ms, floor, bnd, pms)
+        each = (" (each frame its single-frame launch)" if dog.dim() == 4
+                else "")
+        print(f"phase 2 refine {label} {tuple(dog.shape)} slots={slots}: "
+              f"valid {int(cands[3].sum())} -> {int(want.valid.sum())}, all "
+              f"eight fields bit for bit refine_candidates_plain{each}"
+              f"; kernel {ms:.4f} ms (launch floor {floor:.4f}), bound "
+              f"{bnd[0]:.5f} ms ({bnd[1]})"
+              + (f", plain {pms:.4f} ms" if pms is not None else ""))
+    for what, prefix in (("detect_object", ("scene", "object")),
+                         ("batch step", ("batch",))):
+        sel = [v for k, v in rows.items() if k.startswith(prefix)]
+        print(f"phase 2 refine per {what} ({len(sel)} launches): kernel "
+              f"{sum(v[0] for v in sel):.4f} ms, launch floors "
+              f"{sum(v[1] for v in sel):.4f} ms, bound "
+              f"{sum(v[2][0] for v in sel):.5f} ms")
+    phase_refine_edges(cfg)
+    ms, floor, bnd, pms = rows["scene octave 0"]
+    record("refine", "refine: Newton steps, contrast and edge tests",
+           "sift_tpu_torch/csrc/refine.cu",
+           "none (sift_tpu/ops/refine.py is plain XLA)", 0.0, ms, pms, bnd)
+    report_b8 = rows["batch octave 0"]
+    print(f"phase 2 refine at octave 0: B = 1 kernel {ms:.4f} ms (floor "
+          f"{floor:.4f}, bound {bnd[0]:.5f}, plain {pms:.4f}); B = 8 kernel "
+          f"{report_b8[0]:.4f} ms (floor {report_b8[1]:.4f}, bound "
+          f"{report_b8[2][0]:.5f}, plain {report_b8[3]:.4f})")
+
+
+def phase_refine_edges(cfg) -> None:
+    """Phase 2, the refine kernel on what the frames do not reach: a
+    stack that is not contiguous (a row band viewed out of the scene's
+    octave 0, the wrapper's copy), with row_bounds past the band, and
+    the planted cubes of tests/test_torch_refine_kernel.py (an invalid
+    slot at (1, 0, 0), a flat cube, cubes that diverge by size and by a
+    NaN, one that steps out of the border box, one across a layer, one
+    still moving after the last step), each alone and as frame 1 of a
+    batch; bit for bit refine_candidates_plain on the card."""
+    import importlib.util
+
+    import torch
+    from sift_tpu_torch.ops import extrema as ext
+    from sift_tpu_torch.ops import pyramid
+    from sift_tpu_torch.ops import refine as ref
+    from benchmark.inputs import recipes
+    scene, _, _, _ = recipes.object_scene(SCENE_HW, OBJECT_HW, REFINE_SEED)
+    dog = pyramid.build_dog_pyramid(pyramid.build_gaussian_pyramid(
+        torch.from_numpy(scene).cuda(), cfg))[0]
+    top, bot = dog.shape[1] // 4, dog.shape[1] - dog.shape[1] // 4
+    band = dog[:, top:bot, :]
+    check(not band.is_contiguous(), "the band view is contiguous")
+    lay, r, c, v = ext.top_candidates(dog, cfg.detect_caps[0], cfg)
+    keep = v & (r >= top + 5) & (r < bot - 5)
+    args = (lay[keep], r[keep] - top, c[keep], v[keep])
+    # the true image's rows reach 3 past the band: every move stays
+    # inside the band (the plain version's gather raises past the field)
+    rows = (-3, bot - top + 3)
+    got = ref.refine_candidates(band, *args, cfg, row_bounds=rows)
+    want = ref.refine_candidates_plain(band, *args, cfg, row_bounds=rows)
+    torch.cuda.synchronize()
+    check(refined_equal(got, want), "refine on a band view differs from "
+          "refine_candidates_plain")
+    n_band = (int(args[3].sum()), int(want.valid.sum()))
+
+    spec = importlib.util.spec_from_file_location(
+        "refine_planted", ROOT / "tests" / "test_torch_refine_kernel.py")
+    planted = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(planted)
+    done = []
+    for name, (make, (l0, r0, c0), expect) in sorted(planted.PLANTED.items()):
+        stack = make().cuda()
+        cand = [torch.tensor(x, dtype=torch.int32, device="cuda")
+                for x in ([l0, 1, l0], [r0, 0, r0], [c0, 0, c0])]
+        valid = torch.tensor([True, False, False], device="cuda")
+        got = ref.refine_candidates(stack, *cand, valid, cfg)
+        want = ref.refine_candidates_plain(stack, *cand, valid, cfg)
+        both = torch.stack([torch.zeros_like(stack), stack])
+        bc = [torch.stack([a, a]) for a in cand]
+        bv = torch.stack([torch.zeros_like(valid), valid])
+        got_b = ref.refine_candidates(both, *bc, bv, cfg)
+        want_b = ref.refine_candidates_plain(both, *bc, bv, cfg)
+        torch.cuda.synchronize()
+        check(refined_equal(got, want) and refined_equal(got_b, want_b)
+              and refined_equal(tuple(a[1] for a in got_b), got),
+              f"refine planted {name}: the kernel differs from "
+              f"refine_candidates_plain")
+        moved = (int(got.layer[0]), int(got.r[0]),
+                 int(got.c[0])) != (l0, r0, c0)
+        check(bool(got.valid[0]) == expect["valid"]
+              and moved == expect["moved"] and not bool(got.valid[1:].any()),
+              f"refine planted {name}: valid {got.valid.tolist()}, moved "
+              f"{moved}; expected {expect}")
+        done.append(name)
+    print(f"phase 2 refine edges, each bit for bit refine_candidates_plain: "
+          f"a {tuple(band.shape)} band viewed out of octave 0 (not "
+          f"contiguous) with row_bounds {rows}: valid {n_band[0]} -> "
+          f"{n_band[1]}; planted "
+          f"cubes alone and as frame 1 of a batch: {', '.join(done)}")
 
 
 def phase_select(dogs, dogs_obj, dogsb, record) -> None:
@@ -1858,16 +2076,17 @@ def wrappers() -> dict:
     from sift_tpu_torch.ops.ori_gather_cuda import gather_patches
     from sift_tpu_torch.ops.ori_hist_cuda import orientation_hist
     from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda
+    from sift_tpu_torch.ops.refine import refine_candidates
     return {"K1": blur_vh, "K1-batch": blur_vh_batch, "K2": extrema_scores,
             "K2-batch": extrema_scores_batch, "K2-compact": extrema_compact,
             "K2-select": select_candidates, "K3": gather_patches,
             "K3-ori": orientation_hist, "K3-desc": descriptor_hist,
-            "K4": knn2_l1_cuda}
+            "K4": knn2_l1_cuda, "refine": refine_candidates}
 
 
 def usable_octaves(hw) -> int:
     """How many octaves of an (H, W) frame detect_and_compute runs:
-    K3-ori and K3-desc launch once for each."""
+    refine, K3-ori and K3-desc launch once for each."""
     from sift_tpu_torch import sift
     from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
     h, w = hw
@@ -1899,14 +2118,15 @@ def phase_main_path(scene_np, obj_np, true_corners, report) -> float:
     scene = torch.from_numpy(scene_np).cuda()
     obj = torch.from_numpy(obj_np).cuda()
     det, launches = counted(lambda: detect_object(scene, obj, cfg))
-    path = ("K1", "K2-compact", "K2-select", "K3-ori", "K3-desc", "K4")
+    path = ("K1", "K2-compact", "K2-select", "refine", "K3-ori", "K3-desc",
+            "K4")
     counts = [launches[k] for k in path]
     for k in path + ("K2", "K3"):
         report[k]["launches"] = launches[k]
     check(all(nl > 0 for nl in counts),
           f"a kernel did not launch on the main path: {counts}")
     per_frame = usable_octaves(scene_np.shape) + usable_octaves(obj_np.shape)
-    once = ("K2-compact", "K2-select", "K3-ori", "K3-desc")
+    once = ("K2-compact", "K2-select", "refine", "K3-ori", "K3-desc")
     check(all(launches[k] == per_frame for k in once),
           f"{once} launched { [launches[k] for k in once] } times, not "
           f"once per usable octave ({per_frame})")
@@ -2019,8 +2239,8 @@ def phase_batch(scene_np, report, pair_fps: float) -> None:
     for k in ("K1-batch", "K2-batch"):
         report[k]["launches"] = launches[k]
     check(all(launches[k] > 0 for k in ("K1-batch", "K2-compact",
-                                        "K2-select", "K3-ori", "K3-desc",
-                                        "K4")),
+                                        "K2-select", "refine", "K3-ori",
+                                        "K3-desc", "K4")),
           f"a kernel of the batch path did not launch: {launches}")
     check(all(launches[k] == 0 for k in ("K1", "K2", "K2-batch", "K3")),
           f"the batch path launched a single-frame kernel or the dense "
@@ -2031,8 +2251,10 @@ def phase_batch(scene_np, report, pair_fps: float) -> None:
           f"batch step: the compact scan / select launched "
           f"{launches['K2-compact']}/{launches['K2-select']} times, not "
           f"once per octave ({octaves})")
-    check(launches["K3-ori"] == octaves and launches["K3-desc"] == octaves,
-          f"batch step: K3-ori/K3-desc launched {launches['K3-ori']}/"
+    check(launches["K3-ori"] == octaves and launches["K3-desc"] == octaves
+          and launches["refine"] == octaves,
+          f"batch step: refine/K3-ori/K3-desc launched "
+          f"{launches['refine']}/{launches['K3-ori']}/"
           f"{launches['K3-desc']} times, not once per octave for all "
           f"{BATCH} frames ({octaves})")
     n = sum(cfg.out_caps)
@@ -2168,7 +2390,7 @@ def phase_mapping_gated(textures) -> None:
     check(not failed, f"mapping gates failed: {failed}")
     check(len(exported) == 2 and all(exported), "export files missing")
     per_octave = n_frames * usable_octaves(hw)
-    once = ("K2-compact", "K2-select", "K3-ori", "K3-desc")
+    once = ("K2-compact", "K2-select", "refine", "K3-ori", "K3-desc")
     check(all(launches[k] == per_octave for k in once),
           f"{once} launched { [launches[k] for k in once] } times, not "
           f"once per usable octave of each frame ({per_octave})")
@@ -2384,7 +2606,8 @@ def phase_band_kernels(img4k_np) -> None:
     """Phase 2, the spatial path's kernel parameters at the band shape of
     the 4K split at world 2 (1080 + 2*64 rows x 3840, octave 0): for
     each of the two bands, the boxed compact scan and the select against
-    their plain versions under torch.equal (route and kernels), and
+    their plain versions under torch.equal (route and kernels), refine
+    with the band's row_bounds bit for bit its plain version, and
     K3-ori and K3-desc with the band's row window against theirs at rtol
     1e-5 / atol 1e-5 * max|hist| per valid row; each kernel also timed at
     rank 0's band."""
@@ -2400,6 +2623,7 @@ def phase_band_kernels(img4k_np) -> None:
     from sift_tpu_torch.ops.orientation import orientation_params
     from sift_tpu_torch.ops.ori_hist_cuda import (orientation_hist,
                                                   orientation_hist_plain)
+    from sift_tpu_torch.ops import refine as ref
     cfg = cfg_4k()
     img = torch.from_numpy(img4k_np).cuda()
     hb = FRAME_4K_HW[0] // 2
@@ -2420,6 +2644,12 @@ def phase_band_kernels(img4k_np) -> None:
             torch.sort(keys[0, :n]).values, torch.sort(pkeys[0, :n]).values),
             f"band {rank}: the boxed compact scan differs from its plain "
             f"version")
+        rf = ref.refine_candidates(dog, *got, cfg, row_bounds=rows)
+        rf_plain = ref.refine_candidates_plain(dog, *got, cfg,
+                                               row_bounds=rows)
+        torch.cuda.synchronize()
+        check(refined_equal(rf, rf_plain), f"band {rank}: refine with rows "
+              f"{rows} differs from refine_candidates_plain")
         kp = sift._octave_tail(gauss, dog, *got, 0, cfg, cfg.out_caps[0],
                                row_bounds=rows)
         rp, rd = cfg.ori_patch_radius, cfg.descr_patch_radius
@@ -2448,18 +2678,24 @@ def phase_band_kernels(img4k_np) -> None:
         times = ""
         if rank == 0:
             t = [median_ms(lambda: ext.top_candidates(dog, cap, cfg, box=box)),
+                 median_ms(lambda: ref.refine_candidates(
+                     dog, *got, cfg, row_bounds=rows)),
                  median_ms(lambda: orientation_hist(*oargs)),
                  median_ms(lambda: descriptor_hist(*dargs))]
-            times = (f"; boxed scan + select {t[0]:.4f} ms, K3-ori "
-                     f"{t[1]:.4f} ms, K3-desc {t[2]:.4f} ms")
+            times = (f"; boxed scan + select {t[0]:.4f} ms, refine "
+                     f"{t[1]:.4f} ms, K3-ori {t[2]:.4f} ms, K3-desc "
+                     f"{t[3]:.4f} ms")
         lines.append(f"band {rank} {tuple(dog.shape)} box {box} rows {rows}: "
-                     f"candidates {n}, valid keypoints {int(kp.valid.sum())}, "
+                     f"candidates {n}, refined {int(rf.valid.sum())} (bit "
+                     f"for bit the plain version), valid keypoints "
+                     f"{int(kp.valid.sum())}, "
                      f"K3-ori max_abs_err {errs[0]!r}, K3-desc max_abs_err "
                      f"{errs[1]!r}{times}")
     torch.cuda.synchronize()
     print("phase 2 spatial band kernels (4K split at world 2, octave 0; "
-          "boxed route and compact scan equal to their plain versions, "
-          "K3-ori/K3-desc within rtol 1e-5): " + "; ".join(lines))
+          "boxed route, compact scan and refine with the band's rows equal "
+          "to their plain versions, K3-ori/K3-desc within rtol 1e-5): "
+          + "; ".join(lines))
 
 
 def multidevice_entries(mesh, scene_np, img4k_np, ba_arrays, graph):
@@ -2546,10 +2782,10 @@ def same_set(a, b) -> bool:
 
 def check_launches(label: str, launches: dict) -> None:
     """The kernels each entry must and must not launch."""
-    need = {"frames": ("K1-batch", "K2-compact", "K2-select", "K3-ori",
-                       "K3-desc"),
+    need = {"frames": ("K1-batch", "K2-compact", "K2-select", "refine",
+                       "K3-ori", "K3-desc"),
             "match_query": ("K4",), "match_train": ("K4",),
-            "spatial": ("K1", "K2-compact", "K2-select", "K3-ori",
+            "spatial": ("K1", "K2-compact", "K2-select", "refine", "K3-ori",
                         "K3-desc")}
     for entry, kernels in need.items():
         got = launches[entry]
@@ -2877,13 +3113,13 @@ def check_frame_launches(label: str, launches: dict, shapes, k4: int,
                          cfg) -> None:
     """detect_and_compute on frames of these shapes (and k4 matches)
     launches K1 once for the base blur and once per octave, the compact
-    scan, the select, K3-ori and K3-desc once per usable octave, K4 k4
-    times, and nothing else."""
+    scan, the select, refine, K3-ori and K3-desc once per usable octave,
+    K4 k4 times, and nothing else."""
     n_oct = sum(usable_octaves(hw) for hw in shapes)
     want = dict.fromkeys(KERNELS, 0)
     want.update({"K1": len(shapes) * (1 + cfg.n_octaves), "K2-compact": n_oct,
-                 "K2-select": n_oct, "K3-ori": n_oct, "K3-desc": n_oct,
-                 "K4": k4})
+                 "K2-select": n_oct, "refine": n_oct, "K3-ori": n_oct,
+                 "K3-desc": n_oct, "K4": k4})
     check(launches == want, f"phase {label}: launches {launches}, not {want}")
 
 

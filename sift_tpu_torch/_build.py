@@ -67,6 +67,10 @@ _SIGNATURES = {
     # stream
     "sift_knn2_l1": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P, _P),
+    # dog, layer, row, col, valid, then the eight Refined fields (layer,
+    # r, c, xi, xr, xc, contr, valid); N, B, D, H, W, nl, border, row_lo,
+    # row_hi, steps, contrast_thr, edge, edge_sq, stream
+    "sift_refine": (_P,) * 13 + (_I,) * 10 + (_F,) * 3 + (_P,),
 }
 
 

@@ -70,7 +70,8 @@ def test_kernel_launches_have_no_fallback():
     launching = [s for s in SOURCES if "_build.library()" in s.read_text()]
     assert {s.name for s in launching} == {
         "conv_cuda.py", "extrema_cuda.py", "ori_gather_cuda.py",
-        "ori_hist_cuda.py", "descr_hist_cuda.py", "match_cuda.py"}
+        "ori_hist_cuda.py", "descr_hist_cuda.py", "match_cuda.py",
+        "refine.py"}
     for src in launching:
         assert not re.search(r"^\s*try\s*:", src.read_text(), re.M), src
         assert ".launches += 1" in src.read_text()
@@ -79,11 +80,14 @@ def test_kernel_launches_have_no_fallback():
 def test_every_kernel_has_a_cuda_source():
     names = {p.name for p in (PKG / "csrc").glob("*.cu")}
     assert names == {"blur.cu", "extrema.cu", "gather.cu", "ori_hist.cu",
-                     "descr_hist.cu", "knn2.cu"}
+                     "descr_hist.cu", "knn2.cu", "refine.cu"}
     entries = set()
     for p in (PKG / "csrc").glob("*.cu"):
         text = p.read_text()
-        assert "sift_tpu/ops/" in text and "_pallas.py" in text, p
+        # each source names the Pallas kernel it replaces, or says it
+        # replaces none and what sift_tpu does instead
+        assert "sift_tpu/ops/" in text and (
+            "_pallas.py" in text or "Replaces no Pallas kernel" in text), p
         assert 'extern "C"' in text and "cudaGetLastError" in text, p
         entries |= set(re.findall(r'extern "C" int (\w+)\(', text))
     # ctypes binds exactly the C entry points the sources define

@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's K1, K1-batch, K2, K2-batch, K3-ori, K3-desc and K4
-kernels and its candidate selection, as their wrappers launch them, in
-one or more
-checkouts of the repository, in turns, with one timing method for all
-of them.
+kernels, its candidate selection and its refinement, as their wrappers
+launch them, in one or more checkouts of the repository, in turns, with
+one timing method for all of them.
 
     python3 tools/torch_kernel_times.py [TREE ...] [--rounds 2]
                                         [--out build/kernel_times.json]
@@ -50,8 +49,16 @@ phase 2's three shapes, on the same inputs (1080p octave 0's stacks, p =
 bit against gather_patches_plain, with its plain version's device time,
 its bound, the device time of an empty kernel of the tree's launch
 shape (floor_ms, tools/torch_cuda_variants.py) and, in a tree with
-gather_shape, its warps a CTA and a sweep of them at each. Each process prints one JSON line; the summary and all lines go
-to --out. Needs one card.
+gather_shape, its warps a CTA and a sweep of them at each.
+--refine-only times ops/refine.refine_candidates alone at every octave
+of detect_object (scene and object) and of the batch step, on the
+candidates of the tree's own scan: in a tree with the refine kernel
+(csrc/refine.cu) its launch, beside the device time of an empty kernel
+of its grid (floor_ms) and its byte bound (chip_smoke
+REFINE_BYTES_PER_SLOT a slot); in a tree without it, the plain version
+that was its path; and at octave 0 (B = 1 and B = 8) the tree's plain
+version (plain_ms, 5 runs). Each process prints one JSON line; the
+summary and all lines go to --out. Needs one card.
 """
 
 from __future__ import annotations
@@ -295,6 +302,49 @@ def gather_worker(tree: pathlib.Path) -> dict:
             "device_ms": {k: r["device_ms"] for k, r in rows.items()}}
 
 
+def refine_worker(tree: pathlib.Path) -> dict:
+    """--refine-only: refine_candidates at every octave of detect_object
+    and of the batch step, with sums per detect_object and per batch
+    step."""
+    cs = load_tree(tree)
+    import torch_cuda_variants as variants
+    from sift_tpu_torch import _build
+    from sift_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from sift_tpu_torch.ops import extrema as ext
+    from sift_tpu_torch.ops import refine as ref
+    floor_lib = variants.floor_library(ROOT / "build" / "refine_floor",
+                                       _build)
+    threads = getattr(ref, "KERNEL_THREADS", None)
+    plain = getattr(ref, "refine_candidates_plain", ref.refine_candidates)
+    out = {}
+    for where, octaves in dog_stacks(cs, *scene_and_object(cs), cfg).items():
+        rows = []
+        for o, d in enumerate(octaves):
+            scan = ext.top_candidates_batch if d.dim() == 4 else \
+                ext.top_candidates
+            cands = scan(d, cfg.detect_caps[o], cfg)
+            slots = cands[0].numel()
+            row = _times(cs, f"{where} octave {o}", d.shape,
+                         lambda d=d, c=cands: ref.refine_candidates(d, *c,
+                                                                    cfg))
+            row["slots"] = slots
+            row["bound_ms"], row["bound_by"] = cs.bound_ms(
+                cs.REFINE_BYTES_PER_SLOT * slots, 0.0)
+            if threads is not None:
+                row["floor_ms"] = cs.median_ms(
+                    lambda s=slots: variants.launch_empty(
+                        floor_lib, (-(-s // threads), 1), threads))
+            if o == 0:
+                row["plain_ms"] = cs.median_ms(
+                    lambda d=d, c=cands: plain(d, *c, cfg), runs=5)
+            rows.append(row)
+        out[where] = rows
+    main = {f"refine {r['label']}": r for rows in out.values() for r in rows}
+    main["refine_per_detect_object"] = _sums(out["scene"] + out["object"])
+    main["refine_per_batch_step"] = _sums(out["batch"])
+    return {"tree": str(tree), "main": main}
+
+
 def worker(tree: pathlib.Path) -> dict:
     cs = load_tree(tree)
     import numpy as np
@@ -388,11 +438,14 @@ def main() -> int:
                     help="time the select kernel's rows alone")
     ap.add_argument("--gather-only", action="store_true",
                     help="time the bare K3 gather alone")
+    ap.add_argument("--refine-only", action="store_true",
+                    help="time refine_candidates alone")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
         work = (gather_worker if args.gather_only else
-                select_worker if args.select_only else worker)
+                select_worker if args.select_only else
+                refine_worker if args.refine_only else worker)
         print(json.dumps(work(pathlib.Path(args.worker).resolve())))
         return 0
 
@@ -404,12 +457,13 @@ def main() -> int:
     print(card)
     trees = [str(pathlib.Path(t).resolve()) for t in args.trees]
     mode = (("--gather-only",) if args.gather_only else
-            ("--select-only",) if args.select_only else ())
+            ("--select-only",) if args.select_only else
+            ("--refine-only",) if args.refine_only else ())
     runs = steps.run_in_turns(
         __file__, trees, args.rounds,
         ("tree", "device_ms") if args.gather_only else
         ("tree", "select_per_detect_object", "select_per_batch_step")
-        if args.select_only else
+        if args.select_only else ("tree", "main") if args.refine_only else
         ("tree", "main", "K1_per_detect_object", "K1-batch_per_batch_step"),
         mode)
     if runs is None:
@@ -421,7 +475,7 @@ def main() -> int:
         "K3-ori_per_detect_object", "K3-desc_per_detect_object",
         "K3-ori_per_batch_step", "K3-desc_per_batch_step")
     keys += tuple(dict.fromkeys(k for r in runs for k in r["main"]
-                                if k.startswith(("select", "p="))))
+                                if k.startswith(("select", "p=", "refine"))))
     summary = {tree: {k: {m: [r["main"][k][m] for r in runs
                               if r["tree"] == tree
                               and m in r["main"].get(k, {})]
