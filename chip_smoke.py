@@ -188,7 +188,7 @@ EXTRA_SLOTS = 64     # phase-2 K3-ori/K3-desc slots starting outside the image
 SMALL_SLOTS = 64     # phase-2 K3-ori/K3-desc small launch (octave 4's cap)
 TRAP_SLOTS = 16      # phase-2 batched K3: invalid slots a frame at layer -1
 KERNELS = ("K1", "K1-batch", "K2", "K2-batch", "K2-compact", "K2-select",
-           "K3", "K3-ori", "K3-desc", "K4", "refine")
+           "K3", "K3-ori", "K3-desc", "K4", "refine", "segsum")
 # phase 2's refine check: the seed of the benchmark's recipes
 # (benchmark/inputs/recipes.py) for its 1080p scene, 640x480 object and
 # B = 8 pan
@@ -2077,11 +2077,13 @@ def wrappers() -> dict:
     from sift_tpu_torch.ops.ori_hist_cuda import orientation_hist
     from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda
     from sift_tpu_torch.ops.refine import refine_candidates
+    from sift_tpu_torch.ops.segsum import segment_sum
     return {"K1": blur_vh, "K1-batch": blur_vh_batch, "K2": extrema_scores,
             "K2-batch": extrema_scores_batch, "K2-compact": extrema_compact,
             "K2-select": select_candidates, "K3": gather_patches,
             "K3-ori": orientation_hist, "K3-desc": descriptor_hist,
-            "K4": knn2_l1_cuda, "refine": refine_candidates}
+            "K4": knn2_l1_cuda, "refine": refine_candidates,
+            "segsum": segment_sum}
 
 
 def usable_octaves(hw) -> int:
@@ -2366,21 +2368,25 @@ def phase_mapping_gated(textures) -> None:
     """Phase 6a: run_mapping on CUDA at eval_mapping's configuration (16
     frames of 240x320, sift_tpu/eval.py:248-249), default arguments,
     exporting to a temporary directory; the four mapping gates, both
-    export files, and the launches of every kernel."""
+    export files, and the launches of every kernel: segsum once per
+    segment sum that the call's sfm.ba and sfm.posegraph spans make."""
     import os
     import tempfile
     from sift_tpu_torch.sfm.mapping import (mapping_ate,
                                             render_corner_sequence,
                                             run_mapping)
     n_frames, hw = MAP_GATED
+    from sift_tpu_torch.utils import profiling
     frames, k, gt = render_corner_sequence(n_frames=n_frames, size=hw,
                                            textures=textures)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as td:
+    profiling.clear()
+    with tempfile.TemporaryDirectory() as td, profiling.tracing():
         res, launches = counted(lambda: run_mapping(
             frames, k, export_prefix=os.path.join(td, "map")))
         exported = [os.path.exists(p) for p in res.stats["export"].values()]
     wall = time.perf_counter() - t0
+    check_segsum_launches("6a", launches, profiling.spans())
     ate = mapping_ate(res, gt)
     print(f"phase 6a mapping {n_frames}x{hw[0]}x{hw[1]} on the card: "
           f"{_stats_line(res.stats, ate)} exported={exported} "
@@ -2403,6 +2409,34 @@ def phase_mapping_gated(textures) -> None:
                                          "K3")),
           f"the mapping path launched a batch kernel, the dense K2 or the "
           f"bare gather K3: {launches}")
+
+
+def segsum_sums(recs) -> int:
+    """The segment sums that the traced spans `recs` make: 6 + 2
+    cg_iters an LM iteration of each `sfm.ba` (sfm/ba.py: five for the
+    normal equations and the right-hand sides, two a CG iteration, one
+    for the back-substitution) and 6 a Gauss-Newton iteration of each
+    `sfm.posegraph` (sfm/posegraph.py)."""
+    return (sum((6 + 2 * r.attrs["cg_iters"]) * r.attrs["iters"]
+                for r in recs if r.name == "sfm.ba")
+            + sum(6 * r.attrs["iters"] for r in recs
+                  if r.name == "sfm.posegraph"))
+
+
+def check_segsum_launches(phase: str, launches: dict, recs) -> int:
+    """Every segment sum of a run_mapping call launched csrc/segsum.cu
+    once: its launches equal segsum_sums of the call's spans."""
+    want = segsum_sums(recs)
+    n_ba = sum(r.name == "sfm.ba" for r in recs)
+    n_pg = sum(r.name == "sfm.posegraph" for r in recs)
+    print(f"phase {phase} segsum launches {launches['segsum']} over {n_ba} "
+          f"sfm.ba and {n_pg} sfm.posegraph spans, which make {want} "
+          f"segment sums")
+    check(n_ba > 0 and n_pg > 0, f"phase {phase}: run_mapping recorded "
+          f"{n_ba} sfm.ba and {n_pg} sfm.posegraph spans")
+    check(launches["segsum"] == want, f"phase {phase}: segsum launched "
+          f"{launches['segsum']} times, not once per segment sum ({want})")
+    return want
 
 
 def phase_mapping_cpu_vs_card(textures) -> None:
@@ -2472,15 +2506,17 @@ def _profile_busy(fn) -> tuple:
     return busy_ns / 1e6, len(spans), [(k, t / 1e6, n) for t, k, n in ops]
 
 
-def phase_mapping_cli_size(textures) -> None:
+def phase_mapping_cli_size(textures, report) -> None:
     """Phase 6c: run_mapping on CUDA at the CLI's frame size, the
     renderer's default 24 frames of 480x640 (sift_tpu/sfm/mapping.py:424);
     at least 90 % registered and one closure; the wall time of one call
     after a warm-up (one, not a median of several: it keeps the whole
     script, phase 7 included, near 400 s on a slow host), by stage: the
     host ms of run_mapping's four spans (utils.profiling; each stage
-    ends by reading its results on the host); then the device busy time
-    and device events of one call (torch.profiler)."""
+    ends by reading its results on the host), with segsum launched once
+    per segment sum of the call's spans and the call's map bit for bit
+    the first's; phase 2's segsum rows at the call's shapes; then the
+    device busy time and device events of one call (torch.profiler)."""
     from sift_tpu_torch.sfm.mapping import (mapping_ate,
                                             render_corner_sequence,
                                             run_mapping)
@@ -2499,19 +2535,174 @@ def phase_mapping_cli_size(textures) -> None:
     profiling.clear()
     with profiling.tracing():
         t0 = time.perf_counter()
-        run_mapping(frames, k)
-        torch.cuda.synchronize()
+        again, launches = counted(lambda: run_mapping(frames, k))
         wall_ms = (time.perf_counter() - t0) * 1e3
     stages = {n: v["total_ms"] for n, v in profiling.summary().items()
               if n.startswith("mapping.")}
     print(f"phase 6c timing (one call after a warm-up): run_mapping "
           f"{wall_ms:.1f} ms; "
           + ", ".join(f"{s} {v:.1f} ms" for s, v in stages.items()))
+    same = same_map(res, again)
+    print(f"phase 6c repeatability, the second call against the first, bit "
+          f"for bit: {same}")
+    check(all(same.values()), f"run_mapping gave another map: {same}")
+    recs = profiling.spans()
+    check_segsum_launches("6c", launches, recs)
+    phase_segsum([s.attrs for s in recs if s.name == "sfm.ba"],
+                 [s.attrs for s in recs if s.name == "sfm.posegraph"],
+                 report, launches["segsum"])
     busy, events, ops = _profile_busy(lambda: run_mapping(frames, k))
     print(f"phase 6c profile of one run_mapping: device busy {busy:.1f} ms "
           f"({100.0 * (1.0 - busy / wall_ms):.1f} % idle over the timed "
           f"call), {events} device events; largest device kernels (ms, "
           f"calls): " + "; ".join(f"{n} {t:.1f} {c}" for n, t, c in ops))
+
+
+def same_map(a, b) -> dict:
+    """Whether two MappingResults hold the same bits: the cameras after
+    the pose graph and after the final BA, the points, the registered
+    frames and points, and the closures (pairs and matches)."""
+    def bits(x):
+        x = np.ascontiguousarray(x)
+        return x.view(np.uint8) if x.dtype.kind == "f" else x
+
+    out = {f: bool(np.array_equal(bits(getattr(a, f)), bits(getattr(b, f))))
+           for f in ("cameras_pg", "cameras_final", "points_final",
+                     "registered", "has_point")}
+    out["closures"] = (
+        [(c.i, c.j) for c in a.closures] == [(c.i, c.j) for c in b.closures]
+        and all(np.array_equal(x.matches, y.matches)
+                for x, y in zip(a.closures, b.closures)))
+    return out
+
+
+def segsum_cases(ba_shapes, pg_shapes) -> list:
+    """(label, S segments, index (O,), width) of the segment sums of
+    phase 6c's largest and smallest bundle adjustments (camera sums at
+    widths 36 and 6, point sums at 9 and 3; indices drawn uniformly, as
+    observations spread over cameras and points) and of its pose graph
+    (the flat normal matrix at width 1, the right-hand side at 6)."""
+    rng = np.random.default_rng(18)
+    out = []
+    picked = sorted({(a["obs"], a["points"], a["cams"]) for a in ba_shapes})
+    for o, p, c in sorted({picked[0], picked[-1]}):
+        cam = rng.integers(0, c, o)
+        pt = rng.integers(0, p, o)
+        for w in (36, 6):
+            out.append((f"BA O={o} cams C={c} W={w}", c, cam, w))
+        for w in (9, 3):
+            out.append((f"BA O={o} points P={p} W={w}", p, pt, w))
+    for g in pg_shapes[:1]:
+        v, e = g["poses"], g["edges"]
+        blocks = rng.integers(0, v * v, e)
+        flat = (blocks[:, None] * 36 + np.arange(36)[None]).reshape(-1)
+        out.append((f"pose graph V={v} E={e} flat W=1", 36 * v * v, flat,
+                    1))
+        out.append((f"pose graph V={v} E={e} rhs W=6", v,
+                    rng.integers(0, v, e), 6))
+    return out
+
+
+def segsum_args(rng, s: int, idx: np.ndarray, w: int, dev):
+    """(out (S, W) non-zero, plan, x (O, W)) on dev: values over eight
+    decades, so that the order of the adds shows in the bits."""
+    import torch
+    from sift_tpu_torch.ops import segsum
+    o = len(idx)
+    x = (rng.standard_normal((o, w))
+         * 10.0 ** rng.uniform(-4, 4, (o, 1))).astype(np.float32)
+    out = (rng.standard_normal((s, w)) * 100).astype(np.float32)
+    index = torch.as_tensor(idx, device=dev)
+    return (torch.as_tensor(out, device=dev), segsum.make_plan(index, s),
+            torch.as_tensor(x, device=dev))
+
+
+def segsum_launch(o: int, s: int, w: int) -> tuple:
+    """(grid, threads) of csrc/segsum.cu's launch for O rows, S segments
+    and width W (its kShortRows, kCols and kThreads)."""
+    if o <= 32 * s:
+        return ((s * w + 127) // 128, 1), 128
+    return (s, (w + 63) // 64), 128
+
+
+def phase_segsum(ba_shapes, pg_shapes, report, launches: int) -> None:
+    """Phase 2's check of the fixed-order segment sum, at the shapes of
+    phase 6c's bundle adjustments and pose graph (their spans'
+    attributes): bit for bit the CPU's index_add_, where the card's
+    index_add_ is not; the kernel's time beside its launch floor (an
+    empty kernel of its grid), the card's index_add_ and its bound;
+    then the edge cases. The JSON row (report["segsum"]) is the largest
+    BA's camera sum at width 36, with the plain version's time that of
+    the card's index_add_ and the launches of phase 6c's timed call."""
+    import torch
+    from sift_tpu_torch import _build
+    from sift_tpu_torch.ops import segsum
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_cuda_variants as variants
+    floor_lib = variants.floor_library(ROOT / "build" / "smoke_floor",
+                                       _build)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    check(ba_shapes and pg_shapes, "phase 6c recorded no sfm.ba or "
+          "sfm.posegraph span")
+    n_atomic_same = 0
+    rows = {}
+    cases = segsum_cases(ba_shapes, pg_shapes)
+    for label, s, idx, w in cases:
+        out, plan, x = segsum_args(rng, s, idx, w, dev)
+        want = out.cpu().index_add_(0, plan.index.cpu(), x.cpu())
+        got = segsum.segment_sum(out.clone(), plan, x).cpu()
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"segsum {label} is not the CPU's index_add_ bit for bit")
+        atomic = out.clone().index_add_(0, plan.index, x).cpu()
+        n_atomic_same += int(torch.equal(atomic.view(torch.int32),
+                                         want.view(torch.int32)))
+        ms = median_ms(lambda: segsum.segment_sum(out, plan, x))
+        ams = median_ms(lambda: out.index_add_(0, plan.index, x))
+        pms = median_ms(lambda: segsum.make_plan(plan.index, s))
+        grid, threads = segsum_launch(len(idx), s, w)
+        floor = median_ms(lambda: variants.launch_empty(floor_lib, grid,
+                                                        threads))
+        o = len(idx)
+        bnd = bound_ms(4.0 * (o * w + o + 2.0 * s * w), o * w,
+                       F32_ISSUE_PER_S)
+        rows[label] = (ms, ams, bnd)
+        print(f"phase 2 segsum {label}: bit for bit the CPU's index_add_; "
+              f"kernel {ms:.4f} ms (launch floor {floor:.4f}; grid {grid} "
+              f"of {threads}), the card's index_add_ {ams:.4f} ms, plan "
+              f"{pms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
+    # segsum_cases lists the largest BA last
+    main = [l for l in rows if " cams " in l and l.endswith(" W=36")][-1]
+    ms, ams, bnd = rows[main]
+    report["segsum"] = {
+        "name": "segsum: fixed-order segment sum", "route": "cuda",
+        "source": "sift_tpu_torch/csrc/segsum.cu",
+        "replaces": "none (sift_tpu/sfm/ba.py sums with segment_sum)",
+        "launches": launches, "max_abs_err": 0.0, "ms": ms,
+        "plain_ms": ams, "bound_ms": bnd[0], "bound_by": bnd[1],
+        "library_ms": None}
+    print(f"phase 2 segsum: the card's index_add_ equal to the CPU's in "
+          f"{n_atomic_same} of {len(cases)} cases")
+    edges = []
+    for label, s, idx, w, strided in (
+            ("empty segments", 50, rng.integers(0, 10, 3000) * 5, 6, False),
+            ("one segment holds every row", 24, np.full(30000, 7), 36,
+             False),
+            ("a chunk past 64 columns", 40, rng.integers(0, 40, 3000), 70,
+             False),
+            ("non-contiguous x", 7, rng.integers(0, 7, 500), 36, True),
+            ("no rows", 5, np.zeros(0, np.int64), 3, False)):
+        out, plan, x = segsum_args(rng, s, idx, w, dev)
+        if strided:
+            x = x.reshape(-1, 6, 6).transpose(1, 2)
+            out = out.reshape(-1, 6, 6)
+        want = out.cpu().index_add_(0, plan.index.cpu(), x.cpu())
+        got = segsum.segment_sum(out.clone(), plan, x).cpu()
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"segsum {label} is not the CPU's index_add_ bit for bit")
+        edges.append(label)
+    print(f"phase 2 segsum edges, each bit for bit the CPU's index_add_: "
+          f"{'; '.join(edges)}")
 
 
 # ------------------------------------------------------ phase 7: multi-device
@@ -3258,7 +3449,7 @@ def main() -> int:
     textures = mapping_textures()
     phase_mapping_gated(textures)
     phase_mapping_cpu_vs_card(textures)
-    phase_mapping_cli_size(textures)
+    phase_mapping_cli_size(textures, report)
     phase_multidevice(scene, img4k)
     phase_oracle(card)
 

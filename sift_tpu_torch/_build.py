@@ -71,6 +71,9 @@ _SIGNATURES = {
     # r, c, xi, xr, xc, contr, valid); N, B, D, H, W, nl, border, row_lo,
     # row_hi, steps, contrast_thr, edge, edge_sq, stream
     "sift_refine": (_P,) * 13 + (_I,) * 10 + (_F,) * 3 + (_P,),
+    # out, x, perm, offsets, O (rows of x), S (segments), W (floats a
+    # row), stream
+    "sift_segsum": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -8,8 +8,11 @@ image coordinates.
     closed form, batched.
   * The reduced camera (Schur) system S dx_c = rhs is solved
     matrix-free with conjugate gradients: each application of S is two
-    per-observation block matvecs, two segment sums (index_add_) and one
-    batched 3x3 product. No S matrix is ever materialized.
+    per-observation block matvecs, two segment sums and one batched 3x3
+    product. No S matrix is ever materialized.
+  * Every segment sum adds in one fixed order (ops/segsum.py: a plan
+    per index vector, made once a call; csrc/segsum.cu on the card,
+    index_add_ on the CPU), so a call gives the same bits on every run.
   * All shapes static: observations are a fixed-capacity masked table;
     LM runs a fixed iteration count and accepts or rejects each step
     with torch.where on the device, so the loop never waits on the host.
@@ -21,11 +24,13 @@ Cameras can be frozen via `fixed_cams` (gauge fixing).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from sift_tpu_torch.geometry.lie import so3_exp, so3_exp_jac
+from sift_tpu_torch.ops import segsum
+from sift_tpu_torch.utils.profiling import span
 
 
 class BAProblem(NamedTuple):
@@ -137,9 +142,21 @@ def _cost(prob: BAProblem, huber_delta: float, loss: str,
 _SAME = object()
 
 
+def _make_plans(prob: BAProblem):
+    """(camera plan, point plan) of prob's segment sums (ops/segsum.py);
+    the observation table does not change within a call. The masked
+    rows are left out: every row summed is weighted by the mask, so
+    theirs are zeros, and every sum starts from zeros."""
+    return (segsum.make_plan(prob.cam_idx, prob.cameras.shape[0],
+                             prob.mask),
+            segsum.make_plan(prob.pt_idx, prob.points.shape[0], prob.mask))
+
+
 def _lm_step(prob: BAProblem, lam: torch.Tensor, huber_delta: float,
-             loss: str, cg_iters: int, psum=None, psum_pt=_SAME):
+             loss: str, cg_iters: int, plans, psum=None, psum_pt=_SAME):
     """One damped Schur/CG step. Returns (dcams (C,6), dpts (P,3)).
+
+    `plans` are _make_plans(prob), the order of its segment sums.
 
     `psum` optionally reduces observation-sharded segment sums across
     devices (a sharded adjuster passes an all-reduce); None on one card.
@@ -152,15 +169,18 @@ def _lm_step(prob: BAProblem, lam: torch.Tensor, huber_delta: float,
         psum_pt = psum
     c = prob.cameras.shape[0]
     p = prob.points.shape[0]
+    cam_plan, pt_plan = plans
     jc, jp, res, w = _build_system(prob, huber_delta, loss)
     wc = w[:, None, None]
 
     def seg_cam(x):  # (O, ...) -> (C, ...)
-        out = x.new_zeros((c,) + x.shape[1:]).index_add_(0, prob.cam_idx, x)
+        out = segsum.segment_sum(x.new_zeros((c,) + x.shape[1:]), cam_plan,
+                                 x)
         return psum(out) if psum is not None else out
 
     def seg_pt(x):   # (O, ...) -> (P, ...)
-        out = x.new_zeros((p,) + x.shape[1:]).index_add_(0, prob.pt_idx, x)
+        out = segsum.segment_sum(x.new_zeros((p,) + x.shape[1:]), pt_plan,
+                                 x)
         return psum_pt(out) if psum_pt is not None else out
 
     # normal-equation blocks
@@ -231,8 +251,9 @@ def bundle_adjust_loop(prob: BAProblem, iters: int, cg_iters: int,
     stay on-device and only the camera system crosses devices.
     """
     lam = torch.tensor(lam0, dtype=torch.float32, device=prob.cameras.device)
+    plans = _make_plans(prob)
     for _ in range(iters):
-        dc, dp = _lm_step(prob, lam, huber_delta, loss, cg_iters,
+        dc, dp = _lm_step(prob, lam, huber_delta, loss, cg_iters, plans,
                           psum=psum, psum_pt=psum_pt)
         cand = prob._replace(cameras=prob.cameras + dc,
                              points=prob.points + dp)
@@ -249,12 +270,21 @@ def bundle_adjust_loop(prob: BAProblem, iters: int, cg_iters: int,
 
 def bundle_adjust(prob: BAProblem, iters: int = 20, cg_iters: int = 30,
                   huber_delta: float = 3e-3, loss: str = "huber",
-                  lam0: float = 1e-3) -> BAProblem:
+                  lam0: float = 1e-3, n_obs: Optional[int] = None
+                  ) -> BAProblem:
     """Run LM bundle adjustment; returns the problem with updated
     cameras/points. Fixed iteration count, accept/reject by cost, on
-    the device of prob's tensors."""
-    return bundle_adjust_loop(prob, iters, cg_iters, huber_delta, loss,
-                              lam0)
+    the device of prob's tensors. Inside a span `sfm.ba` whose
+    attributes are the padded table's shapes (obs, points, cams), the
+    rows its segment sums read (obs_used: `n_obs`, the unmasked rows,
+    where the caller knows it without reading the mask back, else
+    obs) and the loop's counts (iters, cg_iters)."""
+    o = prob.cam_idx.shape[0]
+    with span("sfm.ba", obs=o, obs_used=o if n_obs is None else n_obs,
+              points=prob.points.shape[0], cams=prob.cameras.shape[0],
+              iters=iters, cg_iters=cg_iters):
+        return bundle_adjust_loop(prob, iters, cg_iters, huber_delta, loss,
+                                  lam0)
 
 
 def reproj_rmse(prob: BAProblem) -> torch.Tensor:

@@ -8,7 +8,9 @@ RANSAC, triangulation, Schur/CG bundle adjustment -- runs in PyTorch on
 `device`.
 
 Pipeline: feature tracks from pairwise matches (union-find) ->
-two-view initialization (essential + triangulate) -> repeated view
+two-view initialization (essential + triangulate; kept only where PnP of
+the views that see most of its points fits them, which sift_tpu does not
+check) -> repeated view
 registration (PnP on the 2D-3D overlap) + new-track triangulation ->
 periodic windowed + final global bundle adjustment, with multi-view
 midpoint retriangulation and COLMAP-style observation pruning.
@@ -39,6 +41,15 @@ from sift_tpu_torch.utils.caps import pow2_cap as _pow2
 from sift_tpu_torch.utils.logger import COUNTERS
 
 Sampler = Callable[[str, torch.Tensor, int, int, int], object]
+
+# a two-view initialization is kept when PnP against its points keeps
+# at least INIT_VIEW_INLIER_SHARE of the correspondences of each of the
+# INIT_CHECK_VIEWS views that see most of them: the wrong one of a near
+# planar pair's two essential matrices keeps 2-24 % in views a few
+# frames from the pair; a sound pair whose baseline is short may keep
+# less than half in its farthest views, and the next pair is then tried
+INIT_VIEW_INLIER_SHARE = 0.5
+INIT_CHECK_VIEWS = 6
 
 
 def resolve_device(device=None) -> torch.device:
@@ -213,7 +224,8 @@ def _ba_tables(table: _ObsTable, cameras, registered, points, has_point,
                free_frames: Optional[np.ndarray] = None,
                device=None):
     """Flatten the current map into a static BAProblem on `device` (one
-    vectorized pass over the observation table).
+    vectorized pass over the observation table); returns (problem, the
+    tracks of its points, its observations before padding).
 
     Only observations of registered cameras with finite parameters are
     included (a camera whose registration failed must not contribute
@@ -284,7 +296,7 @@ def _ba_tables(table: _ObsTable, cameras, registered, points, has_point,
               torch.float32),
         mask=on(mask, torch.bool),
         fixed_cams=on(fixed, torch.bool))
-    return prob, live
+    return prob, live, o
 
 
 def _pose_rt(cam6):
@@ -343,9 +355,9 @@ def reconstruct(kp_xy: Sequence[np.ndarray],
     def on(a):
         return torch.as_tensor(a, device=dev)
 
-    def adjust(prob, live, iters):
+    def adjust(prob, live, n_obs, iters):
         out = bundle_adjust(prob, iters=iters, loss="cauchy",
-                            huber_delta=ransac_threshold)
+                            huber_delta=ransac_threshold, n_obs=n_obs)
         cameras[registered] = out.cameras.cpu().numpy()[registered]
         points[live] = out.points.cpu().numpy()[:len(live)]
         return out
@@ -452,16 +464,41 @@ def reconstruct(kp_xy: Sequence[np.ndarray],
         has_point[(cnt_all < 2) | (cnt_reg < 2)] = False
         return int(bad.sum())
 
-    # --- initialization: try pairs by match count until one yields a
-    # well-conditioned baseline (near-pure-rotation pairs triangulate
-    # nothing and are rejected by cheirality) ---
-    candidates = ([init_pair] if init_pair is not None else
-                  sorted(matches, key=lambda k: -len(matches[k])))
-    init_done = False
-    for (i0, j0) in candidates:
+    def overlaps():
+        """The observations of points in unregistered views, and each
+        view's count of them (one bincount)."""
+        cand = (table.alive & has_point[table.track]
+                & ~registered[table.frame] & ~failed[table.frame])
+        return cand, np.bincount(table.frame[cand], minlength=n_frames)
+
+    def next_view():
+        """The unregistered view with the largest 2D-3D overlap and that
+        overlap."""
+        cand, counts = overlaps()
+        best_f = int(counts.argmax())
+        return cand, best_f, int(counts[best_f])
+
+    def view_pnp(cand, best_f):
+        """PnP RANSAC of view best_f against the points it observes:
+        (result, its valid correspondences)."""
+        rows = cand & (table.frame == best_f)
+        ts = table.track[rows].astype(np.int64)
+        cap = _pow2(len(ts), lo=16) * 2
+        x3p, maskp = _pad2(points[ts], cap)
+        p2p, _ = _pad2(table.uv[rows], cap)
+        valid = on(maskp)
+        pres = pnp_ransac(on(x3p), on(p2p), valid=valid,
+                          threshold=ransac_threshold,
+                          samples=draw(sampler, "pnp", valid))
+        return pres, len(ts)
+
+    def init_pair_map(i0, j0) -> bool:
+        """Register frames i0, j0 from their essential matrix and
+        triangulate their shared tracks; True with at least
+        min_pnp_points points, else everything rolled back."""
         m0 = np.asarray(matches[(i0, j0)])
         if len(m0) < 16:
-            continue
+            return False
         cap = _pow2(len(m0), lo=16) * 2
         p0, mask0 = _pad2(kp_xy[i0][m0[:, 0]], cap)
         p1, _ = _pad2(kp_xy[j0][m0[:, 1]], cap)
@@ -471,7 +508,7 @@ def reconstruct(kp_xy: Sequence[np.ndarray],
                                     samples=draw(sampler, "essential",
                                                  valid))
         if not bool(res.ok):
-            continue
+            return False
         cameras[j0, :3] = so3_log_f32(res.R)
         cameras[j0, 3:] = res.t.cpu().numpy()
         registered[i0] = registered[j0] = True
@@ -482,13 +519,52 @@ def reconstruct(kp_xy: Sequence[np.ndarray],
         init_tracks = all_t[in_i0 & in_j0]
         n_ok = tri_tracks(init_tracks, i0, j0) if len(init_tracks) else 0
         if n_ok >= min_pnp_points:
-            init_done = True
-            break
-        # degenerate baseline: roll back and try the next pair
+            return True
+        # degenerate baseline: roll back
         registered[i0] = registered[j0] = False
         cameras[j0] = 0.0
         points[:] = 0.0
         has_point[:] = False
+        return False
+
+    def explains_next_views() -> bool:
+        """Whether the two-view map explains the views that see most of
+        it: a pair seen (near-)planar gives two essential matrices that
+        fit it alike, and the wrong one's points put the views beyond
+        the pair off most of their correspondences (the nearest view
+        may still fit). True where no view overlaps enough to tell."""
+        cand, counts = overlaps()
+        views = np.argsort(-counts, kind="stable")[:INIT_CHECK_VIEWS]
+        for f in views[counts[views] >= min_pnp_points]:
+            pres, n_valid = view_pnp(cand, int(f))
+            if not (bool(pres.ok) and int(pres.n_inliers)
+                    >= INIT_VIEW_INLIER_SHARE * n_valid):
+                return False
+        return True
+
+    # --- initialization: try pairs by match count until one yields a
+    # well-conditioned baseline (near-pure-rotation pairs triangulate
+    # nothing and are rejected by cheirality) whose map explains the
+    # views that see most of it; if none does, the first pair with a
+    # baseline ---
+    candidates = ([init_pair] if init_pair is not None else
+                  sorted(matches, key=lambda k: -len(matches[k])))
+    init_done = False
+    first = None
+    for (i0, j0) in candidates:
+        if not init_pair_map(i0, j0):
+            continue
+        if explains_next_views():
+            init_done = True
+            break
+        first = first or (i0, j0)
+        registered[i0] = registered[j0] = False
+        cameras[j0] = 0.0
+        points[:] = 0.0
+        has_point[:] = False
+    if not init_done and first is not None:
+        i0, j0 = first
+        init_done = init_pair_map(i0, j0)
     if not init_done:
         raise RuntimeError(
             "two-view initialization failed: no pair with a usable "
@@ -500,24 +576,11 @@ def reconstruct(kp_xy: Sequence[np.ndarray],
     n_bas = 0
     reg_order: List[int] = [i0, j0]
     while True:
-        # candidate view with largest 2D-3D overlap (one bincount)
-        cand = (table.alive & has_point[table.track]
-                & ~registered[table.frame] & ~failed[table.frame])
-        counts = np.bincount(table.frame[cand], minlength=n_frames)
-        best_f = int(counts.argmax())
-        best_overlap = int(counts[best_f])
+        cand, best_f, best_overlap = next_view()
         if best_overlap < min_pnp_points:
             break
 
-        rows = cand & (table.frame == best_f)
-        ts = table.track[rows].astype(np.int64)
-        cap = _pow2(len(ts), lo=16) * 2
-        x3p, maskp = _pad2(points[ts], cap)
-        p2p, _ = _pad2(table.uv[rows], cap)
-        valid = on(maskp)
-        pres = pnp_ransac(on(x3p), on(p2p), valid=valid,
-                          threshold=ransac_threshold,
-                          samples=draw(sampler, "pnp", valid))
+        pres, _ = view_pnp(cand, best_f)
         if not bool(pres.ok) or int(pres.n_inliers) < min_pnp_points // 2:
             # cannot register this view; blacklist it (NOT registered,
             # so its observations never enter BA) to avoid re-trying

@@ -195,8 +195,18 @@ def render_corner_sequence(data_dir: Optional[str] = None,
 
 
 @dataclasses.dataclass
+class FrontEnd:
+    """What the front end handed the back end, as it holds it."""
+    keypoints: List                # per frame: sift Keypoints, on the device
+    descriptors: List[torch.Tensor]  # per frame: (N, 128), on the device
+    xy: List[np.ndarray]           # per frame: (N, 2) pixel coordinates
+    pair_matches: Dict[Tuple[int, int], object]  # (i, j): ops.match.Matches
+    matches: Dict[Tuple[int, int], np.ndarray]   # (i, j): (M, 2) kept pairs
+
+
+@dataclasses.dataclass
 class MappingResult:
-    """End-to-end mapping output (host-side NumPy)."""
+    """End-to-end mapping output (host-side NumPy, but the front end's)."""
     rec: Reconstruction            # sequential-odometry reconstruction
     closures: List[LoopClosure]
     cameras_pg: np.ndarray         # (F, 6) pose-graph-corrected
@@ -206,38 +216,42 @@ class MappingResult:
     registered: np.ndarray         # (F,) bool
     reproj_rmse: float
     stats: Dict
+    front_end: Optional[FrontEnd] = None
 
 
 def _detect_all(frames: np.ndarray, cfg, dev: torch.device):
-    """Per frame: descriptors and valid mask (on dev) and (N, 2) pixel
+    """Per frame: keypoints, descriptors (on dev) and (N, 2) pixel
     coordinates (NumPy)."""
     from sift_tpu_torch import sift
-    descs, valids, xy = [], [], []
+    kps, descs, xy = [], [], []
     for f in frames:
         kp, d = sift.detect_and_compute(
             torch.as_tensor(f, dtype=torch.float32, device=dev), cfg)
+        kps.append(kp)
         descs.append(d)
-        valids.append(kp.valid)
         xy.append(torch.stack([kp.x, kp.y], 1).cpu().numpy())
-    return descs, valids, xy
+    return kps, descs, xy
 
 
-def _sequential_matches(descs, valids, pair_window: int, ratio: float
-                        ) -> Dict[Tuple[int, int], np.ndarray]:
+def _sequential_matches(descs, valids, pair_window: int, ratio: float):
+    """({(i, j): (M, 2) query/train keypoint pairs} of the pairs with at
+    least 8 matches, {(i, j): ops.match.Matches} of every pair)."""
     from sift_tpu_torch.ops.match import match_ratio
     out: Dict[Tuple[int, int], np.ndarray] = {}
+    raw = {}
     n = len(descs)
     for i in range(n):
         for j in range(i + 1, min(i + 1 + pair_window, n)):
             m = match_ratio(descs[i], descs[j], q_valid=valids[i],
                             t_valid=valids[j], ratio=ratio)
+            raw[(i, j)] = m
             good = m.good.cpu().numpy()
             qi = np.where(good)[0]
             if len(qi) >= 8:
                 out[(i, j)] = np.stack(
                     [qi, m.train_idx.cpu().numpy()[qi].astype(np.int64)],
                     axis=1)
-    return out
+    return out, raw
 
 
 def _rel_pose(a6: np.ndarray, b6: np.ndarray) -> np.ndarray:
@@ -368,23 +382,36 @@ def run_mapping(frames: np.ndarray, k: np.ndarray,
     """Run the full pipeline on an (F, H, W) image sequence.
 
     `k` is the (3, 3) pinhole intrinsics matrix of the sequence. It
-    runs on `device` (default CUDA), in four spans of utils.profiling:
-    mapping.front_end (detect + sequential match), mapping.reconstruct,
-    mapping.loop_closure (closures, their PnP edges, the pose graph) and
-    mapping.final_ba (with the export). Each stage ends by reading its
-    results on the host, so its span also holds its device work.
+    runs on `device` (default CUDA), inside a span `mapping.run` of
+    utils.profiling, in four stage spans: mapping.front_end (detect +
+    sequential match), mapping.reconstruct, mapping.loop_closure
+    (closures, their PnP edges, the pose graph) and mapping.final_ba
+    (with the export). Each stage ends by reading its results on the
+    host, so its span also holds its device work. The result's
+    `front_end` holds what the front end handed the back end.
     """
+    with span("mapping.run"):
+        return _run_mapping(frames, k, cfg, pair_window, ratio, min_gap,
+                            closure_candidates, ransac_threshold, ba_window,
+                            export_prefix, sampler, proj, device)
+
+
+def _run_mapping(frames, k, cfg, pair_window, ratio, min_gap,
+                 closure_candidates, ransac_threshold, ba_window,
+                 export_prefix, sampler, proj, device) -> MappingResult:
     from sift_tpu_torch.config import DEFAULT_CONFIG
     cfg = cfg or DEFAULT_CONFIG
     dev = resolve_device(device)
 
     with span("mapping.front_end"):
-        descs, valids, xy = _detect_all(frames, cfg, dev)
+        kps, descs, xy = _detect_all(frames, cfg, dev)
+        valids = [kp.valid for kp in kps]
         fx, fy = k[0, 0], k[1, 1]
         cx, cy = k[0, 2], k[1, 2]
         xy_n = [np.stack([(p[:, 0] - cx) / fx, (p[:, 1] - cy) / fy], 1)
                 .astype(np.float32) for p in xy]
-        seq = _sequential_matches(descs, valids, pair_window, ratio)
+        seq, pair_matches = _sequential_matches(descs, valids, pair_window,
+                                                ratio)
 
     with span("mapping.reconstruct"):
         rec = reconstruct(xy_n, seq, ransac_threshold=ransac_threshold,
@@ -432,11 +459,11 @@ def run_mapping(frames: np.ndarray, k: np.ndarray,
         # BA -> prune wrong-correspondence observations (closure matches
         # are ratio-tested but unverified per-observation) -> BA again
         for _ in range(2):
-            prob, live = _ba_tables(table, cameras, rec.registered, points,
-                                    has_point, anchor_frame=anchor,
-                                    device=dev)
+            prob, live, n_obs = _ba_tables(table, cameras, rec.registered,
+                                           points, has_point,
+                                           anchor_frame=anchor, device=dev)
             out = bundle_adjust(prob, iters=24, loss="cauchy",
-                                huber_delta=ransac_threshold)
+                                huber_delta=ransac_threshold, n_obs=n_obs)
             cameras[rec.registered] = \
                 out.cameras.cpu().numpy()[rec.registered]
             points[live] = out.points.cpu().numpy()[:len(live)]
@@ -451,6 +478,7 @@ def run_mapping(frames: np.ndarray, k: np.ndarray,
             cameras_final=cameras, points_final=points,
             has_point=has_point, registered=rec.registered,
             reproj_rmse=rmse,
+            front_end=FrontEnd(kps, descs, xy, pair_matches, seq),
             stats={
                 "n_frames": len(frames),
                 "n_registered": int(rec.registered.sum()),

@@ -6,8 +6,9 @@ measured relative transforms T_ij, minimize
 over absolute poses T_i (fixed poses hold the gauge). A static masked
 edge table; per-edge 6x6 Jacobian blocks (torch.func.jacfwd under
 torch.func.vmap) are scatter-added into the dense (6V x 6V) normal
-equations with index_add_ on a flat view, which accumulates the blocks
-of edges that share a vertex (an indexed += would keep only one). The
+equations with segment sums on a flat view, which accumulate the blocks
+of edges that share a vertex (an indexed += would keep only one), in
+one fixed order (ops/segsum.py: the plans are made once a call). The
 damped normal solve is dense (solve_ex: a singular system gives NaN and
 the step is rejected).
 """
@@ -19,6 +20,8 @@ from typing import NamedTuple
 import torch
 
 from sift_tpu_torch.geometry.lie import so3_exp, so3_log
+from sift_tpu_torch.ops import segsum
+from sift_tpu_torch.utils.profiling import span
 
 
 class PoseGraph(NamedTuple):
@@ -66,7 +69,15 @@ def _flat_block_index(a: torch.Tensor, b: torch.Tensor, v: int
 def optimize_pose_graph(g: PoseGraph, iters: int = 15,
                         lam0: float = 1e-4) -> PoseGraph:
     """Damped Gauss-Newton with accept/reject on the total cost, on the
-    device of g's tensors; no host synchronisation inside the loop."""
+    device of g's tensors; no host synchronisation inside the loop.
+    Inside a span `sfm.posegraph` with the graph's poses and edges and
+    the iterations."""
+    with span("sfm.posegraph", poses=g.poses.shape[0],
+              edges=g.edges_i.shape[0], iters=iters):
+        return _optimize(g, iters, lam0)
+
+
+def _optimize(g: PoseGraph, iters: int, lam0: float) -> PoseGraph:
     v = g.poses.shape[0]
     dev = g.poses.device
     ei, ej = g.edges_i.long(), g.edges_j.long()
@@ -79,6 +90,10 @@ def optimize_pose_graph(g: PoseGraph, iters: int = 15,
     idx_jj = _flat_block_index(ej, ej, v).reshape(-1)
     idx_ij = _flat_block_index(ei, ej, v).reshape(-1)
     idx_ji = _flat_block_index(ej, ei, v).reshape(-1)
+    plan_ii, plan_jj, plan_ij, plan_ji = (
+        segsum.make_plan(idx, 36 * v * v)
+        for idx in (idx_ii, idx_jj, idx_ij, idx_ji))
+    plan_i, plan_j = segsum.make_plan(ei, v), segsum.make_plan(ej, v)
 
     def cost(poses):
         res = _edge_residual(poses[ei], poses[ej], g.rel)
@@ -96,13 +111,13 @@ def optimize_pose_graph(g: PoseGraph, iters: int = 15,
         rw = r * sqw[:, None]
         hij = ji.mT @ jj
         h = torch.zeros(36 * v * v, dtype=torch.float32, device=dev)
-        h.index_add_(0, idx_ii, (ji.mT @ ji).reshape(-1))
-        h.index_add_(0, idx_jj, (jj.mT @ jj).reshape(-1))
-        h.index_add_(0, idx_ij, hij.reshape(-1))
-        h.index_add_(0, idx_ji, hij.mT.reshape(-1))
+        segsum.segment_sum(h, plan_ii, (ji.mT @ ji).reshape(-1))
+        segsum.segment_sum(h, plan_jj, (jj.mT @ jj).reshape(-1))
+        segsum.segment_sum(h, plan_ij, hij.reshape(-1))
+        segsum.segment_sum(h, plan_ji, hij.mT.reshape(-1))
         b = torch.zeros((v, 6), dtype=torch.float32, device=dev)
-        b.index_add_(0, ei, (ji.mT @ rw[:, :, None])[:, :, 0])
-        b.index_add_(0, ej, (jj.mT @ rw[:, :, None])[:, :, 0])
+        segsum.segment_sum(b, plan_i, (ji.mT @ rw[:, :, None])[:, :, 0])
+        segsum.segment_sum(b, plan_j, (jj.mT @ rw[:, :, None])[:, :, 0])
         hd = h.reshape(6 * v, 6 * v)
         damped = hd + torch.diag(
             lam * torch.clamp(torch.diagonal(hd), min=1e-8) + fixed_flat)

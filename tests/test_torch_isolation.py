@@ -24,7 +24,7 @@ def test_port_imports_no_jax():
         "bad = sorted(k for k in sys.modules\n"
         "             if k == 'jax' or k.startswith(('jax.', 'sift_tpu.'))\n"
         "             or k == 'sift_tpu')\n"
-        "assert len(mods) >= 57, mods\n"
+        "assert len(mods) >= 60, mods\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=PKG.parent,
                           capture_output=True, text=True, timeout=300)
@@ -71,7 +71,7 @@ def test_kernel_launches_have_no_fallback():
     assert {s.name for s in launching} == {
         "conv_cuda.py", "extrema_cuda.py", "ori_gather_cuda.py",
         "ori_hist_cuda.py", "descr_hist_cuda.py", "match_cuda.py",
-        "refine.py"}
+        "refine.py", "segsum.py"}
     for src in launching:
         assert not re.search(r"^\s*try\s*:", src.read_text(), re.M), src
         assert ".launches += 1" in src.read_text()
@@ -80,7 +80,7 @@ def test_kernel_launches_have_no_fallback():
 def test_every_kernel_has_a_cuda_source():
     names = {p.name for p in (PKG / "csrc").glob("*.cu")}
     assert names == {"blur.cu", "extrema.cu", "gather.cu", "ori_hist.cu",
-                     "descr_hist.cu", "knn2.cu", "refine.cu"}
+                     "descr_hist.cu", "knn2.cu", "refine.cu", "segsum.cu"}
     entries = set()
     for p in (PKG / "csrc").glob("*.cu"):
         text = p.read_text()

@@ -202,3 +202,68 @@ def test_traced_run_never_synchronises(monkeypatch, small_image):
     assert {"pipeline.detect_object", "sift.detect_and_compute_batch",
             "geometry.ransac", "x"} <= names
     assert np.isfinite(profiling.summary()["x/octave1"]["total_ms"])
+
+
+@pytest.fixture
+def one_thread():
+    # the SfM path's many small ops run several times faster on one
+    # thread than on threads that contend with other test processes
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_mapping_span_tree(one_thread):
+    """A small CPU run_mapping (caps of 640 keypoints a frame, so that
+    the plain matcher stays cheap): one root `mapping.run`, its four
+    stages as children, each bundle adjustment an `sfm.ba` span (in
+    reconstruct and in the final BA) with the padded table's shapes,
+    the rows its sums read and the loop's counts, the pose graph an
+    `sfm.posegraph` span in the loop-closure
+    stage with its poses, edges and iterations."""
+    import dataclasses
+    import chip_smoke
+    from sift_tpu_torch.sfm.mapping import render_corner_sequence, run_mapping
+    texs = chip_smoke.mapping_textures()
+    frames, k, _ = render_corner_sequence(n_frames=10, size=(200, 268),
+                                          textures=texs, seed=5)
+    cfg = dataclasses.replace(DEFAULT_CONFIG, out_caps=(384, 128, 64, 32, 32))
+    with profiling.tracing():
+        res = run_mapping(frames, k, cfg, device="cpu")
+    root, kids = _tree("mapping.run")
+    assert [s.name for s in sorted(kids, key=lambda s: s.start_ns)] == [
+        "mapping.front_end", "mapping.reconstruct", "mapping.loop_closure",
+        "mapping.final_ba"]
+    stage = {s.id: s.name for s in kids}
+    recs = profiling.spans()
+    by_id = {s.id: s for s in recs}
+
+    def stage_of(s):
+        while s.parent != root.id:
+            s = by_id[s.parent]
+        return stage[s.id]
+
+    bas = [s for s in recs if s.name == "sfm.ba"]
+    graphs = [s for s in recs if s.name == "sfm.posegraph"]
+    assert {stage_of(s) for s in bas} == {"mapping.reconstruct",
+                                          "mapping.final_ba"}
+    assert res.stats["n_closure_edges"] >= 1
+    assert [stage_of(s) for s in graphs] == ["mapping.loop_closure"]
+    for s in bas:
+        assert set(s.attrs) == {"obs", "obs_used", "points", "cams",
+                                "iters", "cg_iters"}
+        assert s.attrs["cams"] == len(frames) and s.attrs["cg_iters"] == 30
+        # padded to powers of two: 64 observations and 32 points at least
+        for n, lo in (("obs", 64), ("points", 32)):
+            assert s.attrs[n] >= lo and s.attrs[n] & (s.attrs[n] - 1) == 0
+        # the unmasked rows: more than half the padded table, or all of
+        # the smallest one
+        assert (s.attrs["obs"] // 2 < s.attrs["obs_used"] <= s.attrs["obs"]
+                or s.attrs["obs_used"] <= s.attrs["obs"] == 64)
+    assert [s.attrs["iters"] for s in bas if stage_of(s)
+            == "mapping.final_ba"][0] == 24
+    (g,) = graphs
+    assert g.attrs == {"poses": len(frames), "iters": 30,
+                       "edges": int(res.registered.sum()) - 1
+                       + res.stats["n_closure_edges"]}

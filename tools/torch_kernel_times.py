@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's K1, K1-batch, K2, K2-batch, K3-ori, K3-desc and K4
-kernels, its candidate selection and its refinement, as their wrappers
-launch them, in one or more checkouts of the repository, in turns, with
-one timing method for all of them.
+kernels, its candidate selection, its refinement and the BA's segment
+sums, as their wrappers launch them, in one or more checkouts of the
+repository, in turns, with one timing method for all of them.
 
     python3 tools/torch_kernel_times.py [TREE ...] [--rounds 2]
                                         [--out build/kernel_times.json]
@@ -27,6 +27,10 @@ way is still timed the same way here. Each process times:
     (trees that have one), each with the tree's select launch shape
     where it has select_shape and, where it has select_floor, the device
     time of an empty kernel launched with that shape (floor_ms);
+  - the BA's segment sums (ops/segsum.segment_sum, csrc/segsum.cu) at
+    32,768 observations over 24 cameras (width 36, the normal blocks)
+    and over 4,096 points (width 3), with the plan made once; in a tree
+    without it, the index_add_ that was its path;
   - K3-ori and K3-desc at every launch of the scene's and the object's
     detect_and_compute (one each per usable octave) and of the batch
     step's detect_and_compute_batch (one each per octave for the 8
@@ -345,6 +349,34 @@ def refine_worker(tree: pathlib.Path) -> dict:
     return {"tree": str(tree), "main": main}
 
 
+def segsum_rows(cs) -> dict:
+    """The BA's segment sums at 32,768 observations over 24 cameras
+    (width 36) and over 4,096 points (width 3): the tree's fixed-order
+    segment_sum where it has ops/segsum.py, else index_add_."""
+    import numpy as np
+    import torch
+    try:
+        from sift_tpu_torch.ops import segsum
+    except ImportError:
+        segsum = None
+    rng = np.random.default_rng(18)
+    dev = torch.device("cuda")
+    o, rows = 32768, {}
+    for label, s, w in (("cams W=36", 24, 36), ("points W=3", 4096, 3)):
+        idx = torch.as_tensor(rng.integers(0, s, o), device=dev)
+        x = torch.randn(o, w, device=dev)
+        out = torch.zeros(s, w, device=dev)
+        if segsum is None:
+            def fn(out=out, idx=idx, x=x):
+                return out.index_add_(0, idx, x)
+        else:
+            def fn(out=out, plan=segsum.make_plan(idx, s), x=x):
+                return segsum.segment_sum(out, plan, x)
+        rows[f"segsum {label}"] = _times(cs, f"O={o} S={s} W={w}", (o, w),
+                                         fn)
+    return rows
+
+
 def worker(tree: pathlib.Path) -> dict:
     cs = load_tree(tree)
     import numpy as np
@@ -410,6 +442,7 @@ def worker(tree: pathlib.Path) -> dict:
                 lambda: ext.extrema_scores(d0, cfg))
     k2b = _times(cs, "batch octave 0", db0.shape,
                  lambda: ext.extrema_scores_batch(db0, cfg))
+    sums = segsum_rows(cs)
     return {"tree": str(tree), "K1": k1, "K1-batch": k1b, "K4": k4,
             "K2": k2, "K2-batch": k2b, "selection": sel,
             "selection-batch": selb,
@@ -419,7 +452,7 @@ def worker(tree: pathlib.Path) -> dict:
             "selection_per_batch_step": _sums(selb), **k3_out, **alone,
             "main": {**(_select_main(alone) if alone else {}),
                      "K1": k1[1], "K1-batch": k1b[1], "K4": k4, "K2": k2,
-                     "K2-batch": k2b,
+                     "K2-batch": k2b, **sums,
                      "selection_per_detect_object": _sums(sel),
                      "selection_per_batch_step": _sums(selb),
                      "K3-ori": k3_out["K3-ori"][0],
@@ -475,7 +508,8 @@ def main() -> int:
         "K3-ori_per_detect_object", "K3-desc_per_detect_object",
         "K3-ori_per_batch_step", "K3-desc_per_batch_step")
     keys += tuple(dict.fromkeys(k for r in runs for k in r["main"]
-                                if k.startswith(("select", "p=", "refine"))))
+                                if k.startswith(("select", "p=", "refine",
+                                                 "segsum"))))
     summary = {tree: {k: {m: [r["main"][k][m] for r in runs
                               if r["tree"] == tree
                               and m in r["main"].get(k, {})]
