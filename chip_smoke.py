@@ -167,6 +167,7 @@ failure exits non-zero before it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -2558,6 +2559,186 @@ def phase_mapping_cli_size(textures, report) -> None:
           f"calls): " + "; ".join(f"{n} {t:.1f} {c}" for n, t, c in ops))
 
 
+def ransac_problem(n_pad: int, seed: int, dev):
+    """A two-view problem padded to n_pad (3/4 valid, a fifth of those
+    outliers, 1e-3 noise): normalized points p0, p1, the valid mask and
+    the world points x seen as p0 (PnP's input)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    n = 3 * n_pad // 4
+    x = rng.uniform([-1, -1, 4], [1, 1, 8], (n, 3))
+    c, s = np.cos(0.1), np.sin(0.1)
+    x1 = x @ np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]]).T + [0.5, 0.05, 0.1]
+    p0, p1 = x[:, :2] / x[:, 2:], x1[:, :2] / x1[:, 2:]
+    p1 = p1 + rng.normal(0, 1e-3, p1.shape)
+    out = rng.random(n) < 0.2
+    p1[out] = rng.uniform(-0.3, 0.3, (int(out.sum()), 2))
+
+    def pad(a):
+        return torch.tensor(np.pad(a, ((0, n_pad - n), (0, 0))),
+                            dtype=torch.float32, device=dev)
+    valid = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    valid[:n] = True
+    return pad(p0), pad(p1), valid, pad(x)
+
+
+class _AtenCount:
+    """Counts the non-view ATen calls dispatched inside its block."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if not func.is_view:
+                    outer.n += 1
+                return func(*args, **(kwargs or {}))
+        self.n = 0
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def phase_ransac_graphs(textures) -> None:
+    """Phase 6d: the geometry layer's CUDA graphs (geometry/graphs.py)
+    against the eager path, bit for bit. run_mapping of phase 6c's 24
+    frames of 480x640 with the cache cleared (a cold request: its
+    spans' share of RANSAC calls that replayed every stretch), again
+    (warm: every call replays), and eagerly (the cache bypassed): equal
+    maps, no key refused, no miss in the warm call. Then, at every
+    padded N of those calls, find_essential_ransac and pnp_ransac on one
+    problem (a miss: each stretch captured) and another (a hit), each
+    against its eager run: E, R, t, inliers, n_inliers and ok equal bit
+    for bit, the cache's counts as expected; ATen calls and host ms of
+    one call eagerly and on a hit at the largest N."""
+    from unittest import mock
+    import torch
+    from sift_tpu_torch.geometry import graphs
+    from sift_tpu_torch.geometry.epipolar import find_essential_ransac
+    from sift_tpu_torch.geometry.pnp import pnp_ransac
+    from sift_tpu_torch.sfm.mapping import render_corner_sequence, run_mapping
+    from sift_tpu_torch.utils import profiling
+    cache = graphs.CACHE
+    eager = mock.patch.object(cache, "_on_card", lambda ts: False)
+    names = ("geometry.essential", "geometry.pnp")
+    n_frames, hw = MAP_CLI
+    frames, k, _ = render_corner_sequence(n_frames=n_frames, size=hw,
+                                          textures=textures)
+
+    def traced_map():
+        profiling.clear()
+        with profiling.tracing():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_mapping(frames, k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        recs = [s for s in profiling.spans() if s.name in names]
+        stages = {n: round(v["total_ms"], 1)
+                  for n, v in profiling.summary().items()
+                  if n.startswith("mapping.") or n in names}
+        return res, recs, wall, stages
+
+    cache.clear()
+    reserved = torch.cuda.memory_reserved()
+    runs = {}
+    for label in ("cold", "warm", "eager"):
+        before = (cache.hits, cache.misses, cache.refused)
+        if label == "eager":
+            with eager:
+                runs[label] = traced_map()
+        else:
+            runs[label] = traced_map()
+        res, recs, wall, stages = runs[label]
+        hit = sum(bool(s.attrs["graph_hit"]) for s in recs)
+        print(f"phase 6d run_mapping {label}: {wall:.2f} s; RANSAC calls "
+              f"{len(recs)}, replayed every stretch {hit} "
+              f"({100.0 * hit / max(len(recs), 1):.1f} %); cache hits "
+              f"{cache.hits - before[0]} misses {cache.misses - before[1]} "
+              f"refused {cache.refused - before[2]}; host ms {stages}")
+        if label == "cold":
+            pool_mb = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
+    check(cache.refused == 0, f"the cache refused {cache.refused} keys: "
+          f"{[k for k in cache.keys() if cache._graphs[k] is None]}")
+    check(runs["warm"][1] and all(s.attrs["graph_hit"]
+                                  for s in runs["warm"][1]),
+          "the warm run_mapping did not replay every RANSAC stretch")
+    check(len(cache.keys()) == cache.misses,
+          f"{cache.misses} misses for {len(cache.keys())} keys")
+    for label in ("cold", "warm"):
+        same = same_map(runs[label][0], runs["eager"][0])
+        print(f"phase 6d {label} map against the eager map, bit for bit: "
+              f"{same}")
+        check(all(same.values()), f"the {label} map differs from the "
+              f"eager map: {same}")
+    sizes = {n: sorted({s.attrs["n"] for s in runs["cold"][1]
+                        if s.name == n}) for n in names}
+    print(f"phase 6d keys {len(cache.keys())} (device memory reserved "
+          f"{pool_mb:+.1f} MiB over the cold run); padded N by solver "
+          f"{sizes}")
+
+    fields = ("E", "R", "t", "inliers", "n_inliers", "ok")
+    solvers = {"geometry.essential": (
+        lambda q: find_essential_ransac(q[0], q[1], valid=q[2],
+                                        threshold=2e-3), 2),
+        "geometry.pnp": (lambda q: pnp_ransac(q[3], q[0], valid=q[2]), 1)}
+    for name, (call, stretches) in solvers.items():
+        for n_pad in sizes[name]:
+            cache.clear()
+            for seed, (dh, dm) in ((n_pad, (0, stretches)),
+                                   (n_pad + 1, (stretches, 0))):
+                q = ransac_problem(n_pad, seed, "cuda")
+                with eager:
+                    want = call(q)
+                h, m = cache.hits, cache.misses
+                got = call(q)
+                bad = [f for f in fields if hasattr(want, f)
+                       and not graphs.same_bits(getattr(got, f),
+                                                getattr(want, f))]
+                check(not bad, f"{name} at N = {n_pad}: {bad} differ from "
+                      f"the eager call's")
+                check((cache.hits - h, cache.misses - m) == (dh, dm),
+                      f"{name} at N = {n_pad}: hits {cache.hits - h} and "
+                      f"misses {cache.misses - m}, not {dh} and {dm}")
+            check(cache.refused == 0, f"{name} at N = {n_pad}: refused")
+        print(f"phase 6d {name}: bit for bit the eager call at N = "
+              f"{sizes[name]}, a miss then a hit each")
+        n_pad = max(sizes[name])
+        q = ransac_problem(n_pad, 7, "cuda")
+        call(q)
+        for label in ("eager", "hit"):
+            ctx = eager if label == "eager" else contextlib.nullcontext()
+            with ctx:
+                with _AtenCount() as c:
+                    call(q)
+                ms = _median_wall_ms(lambda: call(q), runs=5)
+            print(f"phase 6d {name} at N = {n_pad}, {label}: {c.n} ATen "
+                  f"calls, {ms:.2f} ms a call")
+
+    # a stretch that reads a value back cannot be captured: the cache
+    # refuses its key, runs it eagerly, and still captures the next key
+    probe = graphs.GraphCache()
+    x = torch.arange(1.0, 5.0, device="cuda")
+    stretches = (("reads back", lambda t: t * float(t.sum())),
+                 ("stays on the card", lambda t: t * t.sum()))
+    for name, fn in stretches * 2:
+        got = probe.run(name, fn, (x,))
+        check(graphs.same_bits(got, fn(x)), f"the stretch that {name}")
+    torch.cuda.synchronize()
+    check((probe.refused, probe.misses, probe.hits) == (1, 2, 1),
+          f"the probe cache: refused {probe.refused}, misses "
+          f"{probe.misses}, hits {probe.hits}, not 1, 2 and 1")
+    print("phase 6d a stretch that syncs: refused and run eagerly; the "
+          "next key captured and replayed")
+
+
 def same_map(a, b) -> dict:
     """Whether two MappingResults hold the same bits: the cameras after
     the pose graph and after the final BA, the points, the registered
@@ -3450,6 +3631,7 @@ def main() -> int:
     phase_mapping_gated(textures)
     phase_mapping_cpu_vs_card(textures)
     phase_mapping_cli_size(textures, report)
+    phase_ransac_graphs(textures)
     phase_multidevice(scene, img4k)
     phase_oracle(card)
 

@@ -11,6 +11,11 @@ Two minimal solvers:
   * "5pt" (default): Nistér's 5-point (geometry/fivepoint.py), up to 10
     candidates per sample, so n_hypotheses // 8 samples (at least 32);
   * "8pt": the normalized linear 8-point (one candidate per sample).
+
+On the card two stretches of a call replay as CUDA graphs
+(geometry/graphs.py): the 5-point solve and scoring after the nullspace
+SVD (`_score_5pt`) and the Gauss-Newton polish (`_polish`). The SVDs,
+the LO refits' eigh and `_decompose` wait for the card and stay eager.
 """
 
 from __future__ import annotations
@@ -19,11 +24,14 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from sift_tpu_torch.geometry.fivepoint import essential_candidates_5pt
+from sift_tpu_torch.geometry import graphs
+from sift_tpu_torch.geometry.fivepoint import (candidates_from_basis,
+                                               nullspace_basis)
 from sift_tpu_torch.geometry.homography import draw_samples
 from sift_tpu_torch.geometry.lie import hat, so3_exp, so3_log
 from sift_tpu_torch.geometry.linalg import smallest_eigvec
 from sift_tpu_torch.geometry.triangulation import triangulate
+from sift_tpu_torch.utils.profiling import span
 
 
 N_HYPOTHESES = 1024
@@ -118,6 +126,52 @@ def _decompose(e: torch.Tensor, p0: torch.Tensor, p1: torch.Tensor,
     return rs[best], ts[best], counts[best]
 
 
+def _score_5pt(basis: torch.Tensor, p0: torch.Tensor, p1: torch.Tensor,
+               valid: torch.Tensor, thr2: float):
+    """The 5-point stretch: each sample's candidates from its nullspace
+    basis, scored by Sampson distance over all N points; (S,) inlier
+    counts and (S, 3, 3) matrices of each sample's best candidate."""
+    cand, cvalid = candidates_from_basis(basis)
+    inl = (_sampson_sq(cand, p0, p1) < thr2) & valid         # (S, 10, N)
+    cnt = inl.sum(-1, dtype=torch.int32) * cvalid.to(torch.int32)
+    kbest = torch.argmax(cnt, dim=1)
+    rows = torch.arange(cnt.shape[0], device=cnt.device)
+    return cnt[rows, kbest], cand[rows, kbest]
+
+
+def _pose_e(params: torch.Tensor) -> torch.Tensor:
+    """E(w, t) = [t/|t|]_x exp(w) of the 5-dof pose params (w, t)."""
+    tv = params[3:]
+    tv = tv / torch.clamp(torch.linalg.vector_norm(tv, dim=-1, keepdim=True),
+                          min=1e-12)
+    return hat(tv) @ so3_exp(params[:3])
+
+
+def _polish(params: torch.Tensor, p0h: torch.Tensor, p1h: torch.Tensor,
+            wmask: torch.Tensor) -> torch.Tensor:
+    """Five Gauss-Newton steps on the weighted Sampson residuals of the
+    homogeneous points p0h, p1h (N, 3): params in, params out."""
+
+    def residuals(q):
+        e = _pose_e(q)
+        ep0 = p0h @ e.T
+        etp1 = p1h @ e
+        num = (p1h * ep0).sum(1)
+        den = torch.sqrt(ep0[:, 0] ** 2 + ep0[:, 1] ** 2
+                         + etp1[:, 0] ** 2 + etp1[:, 1] ** 2 + 1e-12)
+        return (num / den) * wmask
+
+    eye6 = torch.eye(6, device=params.device)
+    for _ in range(5):
+        res = residuals(params)
+        j = torch.func.jacfwd(residuals)(params)           # (N, 6)
+        jtj = j.T @ j + 1e-8 * eye6
+        delta, info = torch.linalg.solve_ex(jtj, (j.T @ res)[:, None])
+        cand_p = torch.where(info == 0, params - delta[:, 0], torch.nan)
+        params = torch.where(cand_p.isfinite().all(), cand_p, params)
+    return params
+
+
 def find_essential_ransac(p0: torch.Tensor, p1: torch.Tensor,
                           valid: Optional[torch.Tensor] = None,
                           threshold: float = 1e-3,
@@ -132,90 +186,70 @@ def find_essential_ransac(p0: torch.Tensor, p1: torch.Tensor,
     (~pixel_thresh / focal_length). solver: "5pt" (Nistér minimal, up
     to 10 candidates per sample) or "8pt" (linear fallback). samples:
     optional sample_shape(n_hypotheses, solver) indices that replace
-    the drawn ones. Runs on p0's device.
+    the drawn ones. Runs on p0's device. Span `geometry.essential`: n
+    (the padded N) and graph_hit (every stretch replayed a graph).
     """
     n = p0.shape[0]
-    p0 = p0.to(torch.float32)
-    p1 = p1.to(torch.float32)
-    dev = p0.device
-    if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=dev)
-    thr2 = threshold * threshold
-    n_samples, k = sample_shape(n_hypotheses, solver)
-    idx = draw_samples(valid, n_samples, k, seed, samples)
+    with span("geometry.essential", n=n, graph_hit=False) as sp:
+        hits = graphs.CACHE.hits
+        p0 = p0.to(torch.float32)
+        p1 = p1.to(torch.float32)
+        dev = p0.device
+        if valid is None:
+            valid = torch.ones((n,), dtype=torch.bool, device=dev)
+        thr2 = threshold * threshold
+        n_samples, k = sample_shape(n_hypotheses, solver)
+        idx = draw_samples(valid, n_samples, k, seed, samples)
 
-    if solver == "5pt":
-        cand, cvalid = essential_candidates_5pt(p0[idx], p1[idx])
-        inl = (_sampson_sq(cand, p0, p1) < thr2) & valid     # (S, 10, N)
-        cnt = inl.sum(-1, dtype=torch.int32) * cvalid.to(torch.int32)
-        kbest = torch.argmax(cnt, dim=1)
-        rows = torch.arange(n_samples, device=dev)
-        counts, es = cnt[rows, kbest], cand[rows, kbest]
-    else:
-        es = _eight_point(p0[idx], p1[idx])
-        inl = (_sampson_sq(es, p0, p1) < thr2) & valid        # (S, N)
-        counts = inl.sum(-1, dtype=torch.int32)
-    best = torch.argmax(counts)
-    e_best = es[best]
-    inliers = (_sampson_sq(e_best, p0, p1) < thr2) & valid
-    ok = counts[best] >= 8
+        if solver == "5pt":
+            basis = nullspace_basis(p0[idx], p1[idx])
+            counts, es = graphs.CACHE.run(
+                "essential.score_5pt", _score_5pt, (basis, p0, p1, valid),
+                (thr2,))
+        else:
+            es = _eight_point(p0[idx], p1[idx])
+            inl = (_sampson_sq(es, p0, p1) < thr2) & valid        # (S, N)
+            counts = inl.sum(-1, dtype=torch.int32)
+        best = torch.argmax(counts)
+        e_best = es[best]
+        inliers = (_sampson_sq(e_best, p0, p1) < thr2) & valid
+        ok = counts[best] >= 8
 
-    # locally-optimized RANSAC: iterate (masked least-squares refit on
-    # the inlier set -> recompute inliers), keeping the best model
-    a_full = _epipolar_rows(p0, p1)
+        # locally-optimized RANSAC: iterate (masked least-squares refit on
+        # the inlier set -> recompute inliers), keeping the best model
+        a_full = _epipolar_rows(p0, p1)
 
-    def refit(mask):
-        a = a_full * mask[:, None].to(torch.float32)
-        return _project_essential(smallest_eigvec(a.T @ a).reshape(3, 3))
+        def refit(mask):
+            a = a_full * mask[:, None].to(torch.float32)
+            return _project_essential(smallest_eigvec(a.T @ a).reshape(3, 3))
 
-    for _ in range(3):
-        e_ref = refit(inliers)
-        inl_ref = (_sampson_sq(e_ref, p0, p1) < thr2) & valid
-        better = inl_ref.sum() >= inliers.sum()
-        e_best = torch.where(better, e_ref, e_best)
-        inliers = torch.where(better, inl_ref, inliers)
+        for _ in range(3):
+            e_ref = refit(inliers)
+            inl_ref = (_sampson_sq(e_ref, p0, p1) < thr2) & valid
+            better = inl_ref.sum() >= inliers.sum()
+            e_best = torch.where(better, e_ref, e_best)
+            inliers = torch.where(better, inl_ref, inliers)
 
-    r, t, _ = _decompose(e_best, p0, p1, inliers)
+        r, t, _ = _decompose(e_best, p0, p1, inliers)
 
-    # Gauss-Newton polish on the 5-dof pose (the linear refit's
-    # algebraic cost is biased; GN on the Sampson error reaches the
-    # noise floor). Parameterized as E(w, t) = [t/|t|]_x exp(w).
-    p0h = torch.cat([p0, torch.ones_like(p0[:, :1])], dim=1)
-    p1h = torch.cat([p1, torch.ones_like(p1[:, :1])], dim=1)
-    wmask = inliers.to(torch.float32)
+        # Gauss-Newton polish on the 5-dof pose (the linear refit's
+        # algebraic cost is biased; GN on the Sampson error reaches the
+        # noise floor). Parameterized as E(w, t) = [t/|t|]_x exp(w).
+        p0h = torch.cat([p0, torch.ones_like(p0[:, :1])], dim=1)
+        p1h = torch.cat([p1, torch.ones_like(p1[:, :1])], dim=1)
+        wmask = inliers.to(torch.float32)
+        params = torch.cat([so3_log(r), t])
+        params = graphs.CACHE.run("essential.polish", _polish,
+                                  (params, p0h, p1h, wmask))
+        e_gn = _pose_e(params)
+        inl_gn = (_sampson_sq(e_gn, p0, p1) < thr2) & valid
+        better = inl_gn.sum() >= inliers.sum()
+        e_best = torch.where(better, e_gn, e_best)
+        inliers = torch.where(better, inl_gn, inliers)
+        r2, t2, _ = _decompose(e_best, p0, p1, inliers)
 
-    def pose_e(params):
-        tv = params[3:]
-        tv = tv / torch.clamp(torch.linalg.vector_norm(tv, dim=-1,
-                                                       keepdim=True),
-                              min=1e-12)
-        return hat(tv) @ so3_exp(params[:3])
-
-    def residuals(params):
-        e = pose_e(params)
-        ep0 = p0h @ e.T
-        etp1 = p1h @ e
-        num = (p1h * ep0).sum(1)
-        den = torch.sqrt(ep0[:, 0] ** 2 + ep0[:, 1] ** 2
-                         + etp1[:, 0] ** 2 + etp1[:, 1] ** 2 + 1e-12)
-        return (num / den) * wmask
-
-    eye6 = torch.eye(6, device=dev)
-    params = torch.cat([so3_log(r), t])
-    for _ in range(5):
-        res = residuals(params)
-        j = torch.func.jacfwd(residuals)(params)           # (N, 6)
-        jtj = j.T @ j + 1e-8 * eye6
-        delta, info = torch.linalg.solve_ex(jtj, (j.T @ res)[:, None])
-        cand_p = torch.where(info == 0, params - delta[:, 0], torch.nan)
-        params = torch.where(cand_p.isfinite().all(), cand_p, params)
-    e_gn = pose_e(params)
-    inl_gn = (_sampson_sq(e_gn, p0, p1) < thr2) & valid
-    better = inl_gn.sum() >= inliers.sum()
-    e_best = torch.where(better, e_gn, e_best)
-    inliers = torch.where(better, inl_gn, inliers)
-    r2, t2, _ = _decompose(e_best, p0, p1, inliers)
-
-    return EssentialResult(e_best, r2, t2, inliers & ok,
-                           inliers.sum(dtype=torch.int32)
-                           * ok.to(torch.int32), ok)
+        sp.set(graph_hit=graphs.CACHE.hits - hits
+               == (2 if solver == "5pt" else 1))
+        return EssentialResult(e_best, r2, t2, inliers & ok,
+                               inliers.sum(dtype=torch.int32)
+                               * ok.to(torch.int32), ok)

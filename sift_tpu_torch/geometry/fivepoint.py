@@ -46,6 +46,10 @@ _DK_ITERS = 80
 _ROOTS0 = (0.4 + 0.9j) ** np.arange(_N_DEG)
 
 _CONV_MAPS: Dict[Tuple, torch.Tensor] = {}
+# the monomial slots and the Durand-Kerner start, by name (_const)
+_HOST_CONSTS = {"mon_flat": (_MON_FLAT, torch.int64),
+                "roots0": (_ROOTS0, torch.complex64)}
+_CONSTS: Dict[Tuple, torch.Tensor] = {}
 
 
 def _conv_map(sa: Tuple[int, ...], sb: Tuple[int, ...], device
@@ -65,6 +69,16 @@ def _conv_map(sa: Tuple[int, ...], sb: Tuple[int, ...], device
                 m[ia, ib, np.ravel_multi_index(out, so)] = 1.0
         _CONV_MAPS[key] = torch.from_numpy(m).to(device)
     return _CONV_MAPS[key]
+
+
+def _const(name: str, device) -> torch.Tensor:
+    """A constant of the solver (_HOST_CONSTS) on `device`, copied from
+    the host once a device."""
+    key = (name, str(device))
+    if key not in _CONSTS:
+        value, dtype = _HOST_CONSTS[name]
+        _CONSTS[key] = torch.as_tensor(value, dtype=dtype, device=device)
+    return _CONSTS[key]
 
 
 def _conv1(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -91,14 +105,28 @@ def essential_candidates_5pt(p0: torch.Tensor, p1: torch.Tensor):
     Invalid slots (complex roots, degenerate samples) are masked:
     callers count inliers per candidate and the mask zeroes losers.
     """
-    dev = p0.device
+    return candidates_from_basis(nullspace_basis(p0, p1))
+
+
+def nullspace_basis(p0: torch.Tensor, p1: torch.Tensor) -> torch.Tensor:
+    """Step 1: the (S, 4, 9) nullspace X, Y, Z, W of each sample's 5x9
+    epipolar system, rows 5..8 of its SVD's V^T (a view). The SVD waits
+    for the card; everything after it does not (candidates_from_basis)."""
     x0, y0 = p0[..., 0], p0[..., 1]
     x1, y1 = p1[..., 0], p1[..., 1]
     o = torch.ones_like(x0)
     a = torch.stack([x1 * x0, x1 * y0, x1, y1 * x0, y1 * y0, y1,
                      x0, y0, o], dim=-1)                 # (S, 5, 9)
     _, _, vt = torch.linalg.svd(a, full_matrices=True)
-    basis = vt[:, 5:9]                                   # (S, 4, 9) X,Y,Z,W
+    return vt[:, 5:9]
+
+
+def candidates_from_basis(basis: torch.Tensor):
+    """Steps 2-6 from an (S, 4, 9) nullspace basis: es (S, 10, 3, 3) and
+    valid (S, 10), as essential_candidates_5pt returns them. No host
+    synchronisation and no copy from the host (constants come from
+    _const), so the stretch can replay as a CUDA graph."""
+    dev = basis.device
 
     # each entry of E as a flattened (2, 2, 2) tensor: slots 4, 2, 1, 0
     # hold the x, y, z and constant coefficients
@@ -128,7 +156,7 @@ def essential_candidates_5pt(p0: torch.Tensor, p1: torch.Tensor):
     cmat = 2.0 * eet - tr[:, None, None, :] * eye[None, :, :, None]
     cubic = torch.einsum("sikx,skjy,xyq->sijq", cmat, e, c32)  # (S,3,3,64)
     rows = torch.cat([det[:, None], cubic.reshape(s, 9, 64)], dim=1)
-    m = rows[:, :, _MON_FLAT]                                   # (S, 10, 20)
+    m = rows[:, :, _const("mon_flat", dev)]                     # (S, 10, 20)
     b, info = torch.linalg.solve_ex(m[:, :, :10], m[:, :, 10:])
     b = torch.where((info == 0)[:, None, None], b, torch.nan)   # (S, 10, 10)
 
@@ -138,12 +166,14 @@ def essential_candidates_5pt(p0: torch.Tensor, p1: torch.Tensor):
 
     def zpolys(hi, lo):
         bh, bl = b[:, hi], b[:, lo]
-        px = (torch.cat([bh[:, [2, 1, 0]], zero], 1)
-              - torch.cat([zero, bl[:, [2, 1, 0]]], 1))
-        py = (torch.cat([bh[:, [5, 4, 3]], zero], 1)
-              - torch.cat([zero, bl[:, [5, 4, 3]]], 1))
-        p1c = (torch.cat([bh[:, [9, 8, 7, 6]], zero], 1)
-               - torch.cat([zero, bl[:, [9, 8, 7, 6]]], 1))
+        # columns 2..0, 5..3 and 9..6, reversed by flip (a list index
+        # would copy it from the host)
+        px = (torch.cat([bh[:, 0:3].flip(1), zero], 1)
+              - torch.cat([zero, bl[:, 0:3].flip(1)], 1))
+        py = (torch.cat([bh[:, 3:6].flip(1), zero], 1)
+              - torch.cat([zero, bl[:, 3:6].flip(1)], 1))
+        p1c = (torch.cat([bh[:, 6:10].flip(1), zero], 1)
+               - torch.cat([zero, bl[:, 6:10].flip(1)], 1))
         return px, py, p1c
 
     krow = zpolys(4, 5)     # x^2 z, x^2
@@ -166,8 +196,7 @@ def essential_candidates_5pt(p0: torch.Tensor, p1: torch.Tensor):
     dn = dn * r_bound ** expo
     dn = dn / dn[:, -1:]
     coeffs = dn.to(torch.complex64)
-    roots = torch.as_tensor(_ROOTS0, dtype=torch.complex64,
-                            device=dev).expand(s, _N_DEG)
+    roots = _const("roots0", dev).expand(s, _N_DEG)
     ceye = torch.eye(_N_DEG, dtype=torch.complex64, device=dev)
     for _ in range(_DK_ITERS):
         pz = _horner(coeffs, roots)

@@ -6,7 +6,9 @@ samples (Gumbel top-k, or injected through `samples=`), each solved at
 once by the weighted DLT and by the planar homography decomposition
 (IPPE-style), whichever explains more points; a locally-optimized refit
 with both solvers, then Gauss-Newton on the inlier reprojection error
-over the 6-dof pose.
+over the 6-dof pose. On the card the Gauss-Newton polish (`_polish`)
+replays as a CUDA graph (geometry/graphs.py); the DLT, planar and LO
+solvers' eigh and SVD wait for the card and stay eager.
 """
 
 from __future__ import annotations
@@ -16,9 +18,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from sift_tpu_torch.geometry import graphs
 from sift_tpu_torch.geometry.homography import draw_samples
 from sift_tpu_torch.geometry.lie import so3_exp, so3_log
 from sift_tpu_torch.geometry.linalg import smallest_eigvec
+from sift_tpu_torch.utils.profiling import span
 
 SAMPLE_SIZE = 6
 N_HYPOTHESES = 512
@@ -145,6 +149,29 @@ def _reproj_sq(r, t, x, p):
     return torch.where(err.isfinite(), err, torch.inf)
 
 
+def _polish(params: torch.Tensor, x: torch.Tensor, p: torch.Tensor,
+            wmask: torch.Tensor) -> torch.Tensor:
+    """Five Gauss-Newton steps on the weighted reprojection residuals of
+    world points x (N, 3) against observations p (N, 2): params (w, t)
+    in, params out."""
+
+    def residuals(q):
+        xc = x @ so3_exp(q[:3]).T + q[3:]
+        z = torch.where(xc[:, 2].abs() > 1e-9, xc[:, 2], 1e-9)
+        proj = xc[:, :2] / z[:, None]
+        return ((proj - p) * wmask[:, None]).reshape(-1)
+
+    eye6 = torch.eye(6, device=params.device)
+    for _ in range(5):
+        res = residuals(params)
+        j = torch.func.jacfwd(residuals)(params)
+        jtj = j.T @ j + 1e-9 * eye6
+        delta, info = torch.linalg.solve_ex(jtj, (j.T @ res)[:, None])
+        cand = torch.where(info == 0, params - delta[:, 0], torch.nan)
+        params = torch.where(cand.isfinite().all(), cand, params)
+    return params
+
+
 def pnp_ransac(x: torch.Tensor, p: torch.Tensor,
                valid: Optional[torch.Tensor] = None,
                threshold: float = 2e-3,
@@ -153,70 +180,62 @@ def pnp_ransac(x: torch.Tensor, p: torch.Tensor,
                samples: Optional[torch.Tensor] = None) -> PnPResult:
     """RANSAC PnP: world points x (N, 3), normalized obs p (N, 2).
     samples: optional (n_hypotheses, SAMPLE_SIZE) indices that replace
-    the drawn ones. Runs on x's device."""
+    the drawn ones. Runs on x's device. Span `geometry.pnp`: n (the
+    padded N) and graph_hit (the polish replayed a graph)."""
     n = x.shape[0]
-    x = x.to(torch.float32)
-    p = p.to(torch.float32)
-    dev = x.device
-    if valid is None:
-        valid = torch.ones((n,), dtype=torch.bool, device=dev)
-    thr2 = threshold * threshold
-    idx = draw_samples(valid, n_hypotheses, SAMPLE_SIZE, seed, samples)
+    with span("geometry.pnp", n=n, graph_hit=False) as sp:
+        hits = graphs.CACHE.hits
+        x = x.to(torch.float32)
+        p = p.to(torch.float32)
+        dev = x.device
+        if valid is None:
+            valid = torch.ones((n,), dtype=torch.bool, device=dev)
+        thr2 = threshold * threshold
+        idx = draw_samples(valid, n_hypotheses, SAMPLE_SIZE, seed, samples)
 
-    # score both the general DLT pose and the planar-decomposition pose:
-    # whichever explains more points wins -- mixed scenes use DLT,
-    # single-plane samples (where DLT drops rank) use planar
-    ones = torch.ones(idx.shape, device=dev)
-    rd, td = _dlt_pnp(x[idx], p[idx], ones)
-    rp, tp = _planar_pnp(x[idx], p[idx], ones)
-    nd = ((_reproj_sq(rd, td, x, p) < thr2) & valid).sum(-1, dtype=torch.int32)
-    np_ = ((_reproj_sq(rp, tp, x, p) < thr2) & valid).sum(-1,
-                                                          dtype=torch.int32)
-    use_p = np_ > nd
-    counts = torch.maximum(nd, np_)
-    rs = torch.where(use_p[:, None, None], rp, rd)
-    ts = torch.where(use_p[:, None], tp, td)
-    best = torch.argmax(counts)
-    r_best, t_best = rs[best], ts[best]
-    inliers = (_reproj_sq(r_best, t_best, x, p) < thr2) & valid
-    ok = counts[best] >= SAMPLE_SIZE
+        # score both the general DLT pose and the planar-decomposition pose:
+        # whichever explains more points wins -- mixed scenes use DLT,
+        # single-plane samples (where DLT drops rank) use planar
+        ones = torch.ones(idx.shape, device=dev)
+        rd, td = _dlt_pnp(x[idx], p[idx], ones)
+        rp, tp = _planar_pnp(x[idx], p[idx], ones)
+        nd = ((_reproj_sq(rd, td, x, p) < thr2) & valid).sum(
+            -1, dtype=torch.int32)
+        np_ = ((_reproj_sq(rp, tp, x, p) < thr2) & valid).sum(
+            -1, dtype=torch.int32)
+        use_p = np_ > nd
+        counts = torch.maximum(nd, np_)
+        rs = torch.where(use_p[:, None, None], rp, rd)
+        ts = torch.where(use_p[:, None], tp, td)
+        best = torch.argmax(counts)
+        r_best, t_best = rs[best], ts[best]
+        inliers = (_reproj_sq(r_best, t_best, x, p) < thr2) & valid
+        ok = counts[best] >= SAMPLE_SIZE
 
-    # locally-optimized refit + GN polish (both solvers -- an all-inlier
-    # refit on a planar map degenerates the DLT exactly like a minimal
-    # sample does)
-    for _ in range(2):
-        for solver in (_dlt_pnp, _planar_pnp):
-            r_ref, t_ref = solver(x, p, inliers.to(torch.float32))
-            inl_ref = (_reproj_sq(r_ref, t_ref, x, p) < thr2) & valid
-            better = inl_ref.sum() >= inliers.sum()
-            r_best = torch.where(better, r_ref, r_best)
-            t_best = torch.where(better, t_ref, t_best)
-            inliers = torch.where(better, inl_ref, inliers)
+        # locally-optimized refit + GN polish (both solvers -- an all-inlier
+        # refit on a planar map degenerates the DLT exactly like a minimal
+        # sample does)
+        for _ in range(2):
+            for solver in (_dlt_pnp, _planar_pnp):
+                r_ref, t_ref = solver(x, p, inliers.to(torch.float32))
+                inl_ref = (_reproj_sq(r_ref, t_ref, x, p) < thr2) & valid
+                better = inl_ref.sum() >= inliers.sum()
+                r_best = torch.where(better, r_ref, r_best)
+                t_best = torch.where(better, t_ref, t_best)
+                inliers = torch.where(better, inl_ref, inliers)
 
-    wmask = inliers.to(torch.float32)
+        wmask = inliers.to(torch.float32)
+        params = torch.cat([so3_log(r_best), t_best])
+        params = graphs.CACHE.run("pnp.polish", _polish, (params, x, p, wmask))
+        r_gn = so3_exp(params[:3])
+        t_gn = params[3:]
+        inl_gn = (_reproj_sq(r_gn, t_gn, x, p) < thr2) & valid
+        better = inl_gn.sum() >= inliers.sum()
+        r_best = torch.where(better, r_gn, r_best)
+        t_best = torch.where(better, t_gn, t_best)
+        inliers = torch.where(better, inl_gn, inliers)
 
-    def residuals(params):
-        xc = x @ so3_exp(params[:3]).T + params[3:]
-        z = torch.where(xc[:, 2].abs() > 1e-9, xc[:, 2], 1e-9)
-        proj = xc[:, :2] / z[:, None]
-        return ((proj - p) * wmask[:, None]).reshape(-1)
-
-    eye6 = torch.eye(6, device=dev)
-    params = torch.cat([so3_log(r_best), t_best])
-    for _ in range(5):
-        res = residuals(params)
-        j = torch.func.jacfwd(residuals)(params)
-        jtj = j.T @ j + 1e-9 * eye6
-        delta, info = torch.linalg.solve_ex(jtj, (j.T @ res)[:, None])
-        cand = torch.where(info == 0, params - delta[:, 0], torch.nan)
-        params = torch.where(cand.isfinite().all(), cand, params)
-    r_gn = so3_exp(params[:3])
-    t_gn = params[3:]
-    inl_gn = (_reproj_sq(r_gn, t_gn, x, p) < thr2) & valid
-    better = inl_gn.sum() >= inliers.sum()
-    r_best = torch.where(better, r_gn, r_best)
-    t_best = torch.where(better, t_gn, t_best)
-    inliers = torch.where(better, inl_gn, inliers)
-
-    return PnPResult(r_best, t_best, inliers & ok,
-                     inliers.sum(dtype=torch.int32) * ok.to(torch.int32), ok)
+        sp.set(graph_hit=graphs.CACHE.hits - hits == 1)
+        return PnPResult(r_best, t_best, inliers & ok,
+                         inliers.sum(dtype=torch.int32) * ok.to(torch.int32),
+                         ok)

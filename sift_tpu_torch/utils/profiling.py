@@ -4,6 +4,10 @@ timing; sift_tpu/utils/profiling.py is its JAX counterpart).
     with span("sift.refine", octave=o):
         ...
 
+    with span("geometry.pnp", n=n, graph_hit=False) as sp:
+        ...
+        sp.set(graph_hit=True)     # an attribute known at the end
+
 A span records its name, its start and end on `time.time_ns()` (the
 Unix clock that torch.profiler's kineto events carry), the id of the
 span it opened inside, its trace id (the id of its root span) and its
@@ -64,6 +68,9 @@ class _Off:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs):
+        pass
+
 
 _OFF = _Off()
 _profiler_enabled = torch.autograd._profiler_enabled
@@ -101,6 +108,11 @@ class _Live:
             self.rf = torch._C._profiler._RecordFunctionFast(self.name)
             self.rf.__enter__()
         return self
+
+    def set(self, **attrs):
+        """Set attributes known only inside the span (a result's count,
+        whether a cache hit)."""
+        self.attrs.update(attrs)
 
     def __exit__(self, *exc):
         global _dropped
