@@ -40,6 +40,8 @@ from sift_tpu_torch.sfm import posegraph_dist as tpgd
 from sift_tpu_torch.sfm.rotation_avg import average_rotations as t_average
 from sift_tpu_torch.utils import health as thealth
 
+from _torch_threads import one_thread  # noqa: F401
+
 ITERS, CG_ITERS = 4, 10
 RANK_TIMEOUT_S = 240
 

@@ -32,6 +32,8 @@ from sift_tpu_torch.ops.conv_cuda import blur_vh_batch_plain, blur_vh_plain
 from sift_tpu_torch.ops.extrema_cuda import (extrema_scores_batch_plain,
                                              extrema_scores_plain)
 
+from _torch_threads import one_thread  # noqa: F401
+
 JCFG = JaxConfig(descr_rc_bf16=False, ori_gather_impl="dynamic_slice",
                  descr_gather_impl="dynamic_slice",
                  detect_caps=(512, 256, 128, 64, 32),

@@ -40,6 +40,8 @@ from sift_tpu_torch.ops.descr_hist_cuda import descriptor_hist
 from sift_tpu_torch.ops.ori_hist_cuda import orientation_hist
 from sift_tpu_torch.types import Keypoints
 
+from _torch_threads import one_thread  # noqa: F401
+
 JCFG = JaxConfig(descr_rc_bf16=False, ori_gather_impl="dynamic_slice",
                  descr_gather_impl="dynamic_slice",
                  detect_caps=(512, 256, 128, 64, 32),

@@ -16,6 +16,8 @@ from sift_tpu_torch.config import (SIFTConfig, DEFAULT_CONFIG as TCFG,
                                    from_jax_config)
 from sift_tpu_torch.ops.conv import stack_kernels
 
+from _torch_threads import one_thread  # noqa: F401
+
 # implementation-choice fields the port does not carry (one formulation
 # per stage)
 _DROPPED = {"ori_hist_impl", "ori_gather_impl", "descr_gather_impl",

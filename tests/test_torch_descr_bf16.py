@@ -26,6 +26,8 @@ from sift_tpu_torch.ops import descriptor as tdesc
 from sift_tpu_torch.ops.descr_hist_cuda import descriptor_hist_plain
 from sift_tpu_torch.types import Keypoints
 
+from _torch_threads import one_thread  # noqa: F401
+
 # sift_tpu's DEFAULT_CONFIG, the bf16 arm left on, at small caps; its
 # own gathers for the stage tests, dynamic_slice for the whole path
 # (sift_tpu's tests/test_descr_gather.py and test_ori_gather.py show

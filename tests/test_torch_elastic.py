@@ -25,6 +25,8 @@ from sift_tpu_torch.parallel.elastic import supervise_ba
 from sift_tpu_torch.sfm import checkpoint as ck
 from sift_tpu_torch.sfm.ba import reproj_rmse
 
+from _torch_threads import one_thread  # noqa: F401
+
 TOTAL, CHUNK, CG_ITERS = 8, 2, 10
 WORKER_TIMEOUT_S = 240
 

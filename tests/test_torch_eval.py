@@ -21,6 +21,8 @@ from sift_tpu import eval as jeval
 from sift_tpu_torch import eval as teval
 from sift_tpu_torch.sfm import mapping as tmap
 
+from _torch_threads import one_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def eval_corpus(tmp_path_factory):

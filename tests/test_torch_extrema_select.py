@@ -51,6 +51,8 @@ from sift_tpu_torch.ops.extrema_cuda import (extrema_compact,
                                              select_candidates,
                                              select_candidates_plain)
 
+from _torch_threads import one_thread  # noqa: F401
+
 MASK32 = 0xFFFFFFFF
 CSRC = pathlib.Path(extrema_cuda.__file__).resolve().parent.parent / "csrc"
 

@@ -32,6 +32,8 @@ from sift_tpu_torch.ops.ori_hist_cuda import orientation_hist_plain
 from sift_tpu_torch.types import Keypoints
 from sift_tpu_torch import sift as tsift
 
+from _torch_threads import one_thread  # noqa: F401
+
 _FLT_EPS = float(np.float32(1.1920929e-07))
 F32 = np.float32
 

@@ -25,6 +25,8 @@ from sift_tpu_torch.ops.ori_gather_cuda import (gather_grid, gather_patches,
                                                 gather_patches_plain,
                                                 gather_shape)
 
+from _torch_threads import one_thread  # noqa: F401
+
 SMS = 132
 
 

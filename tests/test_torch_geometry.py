@@ -31,6 +31,8 @@ from sift_tpu_torch.geometry.triangulation import (reprojection_error,
                                                    triangulate)
 from sift_tpu_torch.utils.metrics import camera_centers
 
+from _torch_threads import one_thread  # noqa: F401
+
 
 def jax_samples(valid: np.ndarray, n_samples: int, k: int, seed: int = 0):
     """JAX's minimal samples: Gumbel top-k over the validity mask."""

@@ -16,6 +16,8 @@ from benchmark.reference import geometry_plain as frozen
 from sift_tpu_torch.geometry import epipolar, fivepoint, graphs, pnp
 from sift_tpu_torch.utils import profiling
 
+from _torch_threads import one_thread  # noqa: F401
+
 
 def two_view(n_pad: int, n: int, seed: int):
     """Normalized correspondences of n points seen from two poses (a

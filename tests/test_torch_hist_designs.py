@@ -37,6 +37,8 @@ from sift_tpu_torch.ops.descr_hist_cuda import descriptor_hist_plain
 from sift_tpu_torch.ops.mathutil import fast_atan2_deg
 from sift_tpu_torch.ops.ori_hist_cuda import orientation_hist_plain
 
+from _torch_threads import one_thread  # noqa: F401
+
 F32 = np.float32
 MAX_EXPONENT = 100    # csrc/hist_common.cuh: kMaxExponent
 UNIT_BITS = 29        # csrc/hist_common.cuh: kUnitBits

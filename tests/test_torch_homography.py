@@ -18,6 +18,8 @@ from sift_tpu.geometry import (find_homography_ransac as jax_ransac,
 from sift_tpu_torch.geometry import (find_homography_ransac,
                                      perspective_transform)
 
+from _torch_threads import one_thread  # noqa: F401
+
 
 def _make_case(seed, n=200, outlier_frac=0.4, noise=0.5):
     rng = np.random.default_rng(seed)

@@ -13,6 +13,8 @@ from sift_tpu.ops import image as jimage
 
 from sift_tpu_torch.ops import image as timage
 
+from _torch_threads import one_thread  # noqa: F401
+
 
 def _texture(shape, seed):
     """Noise over a smooth field: flat stretches and sharp steps."""

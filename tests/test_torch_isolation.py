@@ -9,6 +9,8 @@ import sys
 
 import pytest
 
+from _torch_threads import one_thread  # noqa: F401
+
 PKG = pathlib.Path(__file__).resolve().parent.parent / "sift_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py"))
 

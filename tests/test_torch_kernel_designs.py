@@ -25,6 +25,8 @@ from sift_tpu_torch.ops.match import mask_train
 from sift_tpu_torch.ops.match_cuda import (knn2_l1_plain, split_plan,
                                            split_span)
 
+from _torch_threads import one_thread  # noqa: F401
+
 SIGMAS = {"base": (TCFG.init_blur_sigma,), "octave": TCFG.scale_sigmas()[1:]}
 LANES = 16            # threads sharing a query in csrc/knn2.cu (tt)
 INF = np.float32(3.0e38)

@@ -34,6 +34,8 @@ from sift_tpu_torch.ops import orientation as tori
 from sift_tpu_torch.ops.match import mask_train
 from sift_tpu_torch.ops.match_cuda import knn2_l1_cuda, knn2_l1_plain
 
+from _torch_threads import one_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("which,shape", [("base", (64, 64)),
                                          ("octave", (96, 120))])

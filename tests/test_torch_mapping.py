@@ -32,6 +32,8 @@ from sift_tpu.sfm import mapping as jmap
 from sift_tpu_torch.config import from_jax_config
 from sift_tpu_torch.sfm import mapping as tmap
 
+from _torch_threads import one_thread  # noqa: F401
+
 
 def jax_sampler(kind, valid, n_samples, k, seed):
     """sift_tpu's RANSAC draw for a call with this validity mask."""

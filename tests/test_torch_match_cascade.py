@@ -11,6 +11,8 @@ from sift_tpu.ops import match_cascade as jcas
 
 from sift_tpu_torch.ops import match_cascade as tcas
 
+from _torch_threads import one_thread  # noqa: F401
+
 SEED, D_PROJ = 7, 16
 
 

@@ -18,6 +18,8 @@ from sift_tpu_torch.ops.match_cuda import (knn2_l1_cuda, knn2_l1_plain,
                                            split_plan, split_span)
 from test_torch_kernel_designs import _knn2_split_model, _merge
 
+from _torch_threads import one_thread  # noqa: F401
+
 RATIO = 0.86
 
 

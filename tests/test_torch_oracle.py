@@ -36,21 +36,13 @@ from sift_tpu_torch.ops import match as tmatch
 from sift_tpu_torch.ops import pyramid as tpyr
 from sift_tpu_torch.oracle import cpu_sift as oracle
 
+from _torch_threads import one_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 RAISED = dataclasses.replace(CFG, out_caps=chip_smoke.ORACLE_OUT_CAPS)
 # tests/test_match.py's crop of small_image (the object of its
 # end-to-end match test)
 CROP = (slice(24, 120), slice(40, 168))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    # the plain path's many small ops run several times faster on one
-    # thread than on threads that contend with other test processes
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,8 @@ from sift_tpu_torch.parallel.match import merge_top2
 from sift_tpu_torch.parallel.mesh import rank_device, run_spmd
 from sift_tpu_torch.utils import health as thealth
 
+from _torch_threads import one_thread  # noqa: F401
+
 JCFG = JaxConfig(descr_rc_bf16=False, ori_gather_impl="dynamic_slice",
                  descr_gather_impl="dynamic_slice",
                  detect_caps=(512, 256, 128, 64, 32),

@@ -26,6 +26,8 @@ from sift_tpu_torch.ops import extrema as ext
 from sift_tpu_torch.ops import pyramid as pyr
 from sift_tpu_torch.ops import refine as ref
 
+from _torch_threads import one_thread  # noqa: F401
+
 F32 = np.float32
 # csrc/refine.cu's constants: each the float32 rounding of the plain
 # version's Python double

@@ -20,6 +20,8 @@ from sift_tpu_torch.ops import segsum
 from sift_tpu_torch.sfm import ba as tba
 from sift_tpu_torch.sfm import posegraph as tpg
 
+from _torch_threads import one_thread  # noqa: F401
+
 CSRC = (pathlib.Path(__file__).resolve().parent.parent / "sift_tpu_torch"
         / "csrc" / "segsum.cu").read_text()
 K_COLS = int(re.search(r"constexpr int kCols = (\d+);", CSRC).group(1))

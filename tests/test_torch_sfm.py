@@ -31,6 +31,8 @@ from sift_tpu_torch.sfm import posegraph as tpg
 from sift_tpu_torch.sfm.export import save_reconstruction
 from sift_tpu_torch.utils.logger import COUNTERS
 
+from _torch_threads import one_thread  # noqa: F401
+
 
 def jax_sampler(kind, valid, n_samples, k, seed):
     """sift_tpu's RANSAC draw for a call with this validity mask."""

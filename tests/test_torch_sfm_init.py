@@ -31,15 +31,7 @@ from sift_tpu_torch.geometry.lie import so3_exp
 from sift_tpu_torch.sfm import incremental as inc
 from sift_tpu_torch.utils.metrics import ate_rmse, camera_centers
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    # reconstruct's many small ops run several times faster on one
-    # thread than on threads that contend with other test processes
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import one_thread  # noqa: F401
 
 
 def _so3(w):

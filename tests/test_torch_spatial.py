@@ -44,6 +44,8 @@ from sift_tpu_torch.parallel.mesh import run_spmd
 from sift_tpu_torch.parallel.spatial import candidate_box
 from sift_tpu_torch.types import Keypoints
 
+from _torch_threads import one_thread  # noqa: F401
+
 JCFG = JaxConfig(descr_rc_bf16=False, ori_gather_impl="dynamic_slice",
                  descr_gather_impl="dynamic_slice",
                  detect_caps=(512, 256, 128, 64, 32),

@@ -32,6 +32,8 @@ from sift_tpu_torch.ops import descriptor as tdesc
 from sift_tpu_torch.ops import match as tmatch
 from sift_tpu_torch.ops import image as timage
 
+from _torch_threads import one_thread  # noqa: F401
+
 JCFG = JaxConfig(descr_rc_bf16=False, ori_gather_impl="dynamic_slice",
                  descr_gather_impl="dynamic_slice",
                  detect_caps=(512, 256, 128, 64, 32),

@@ -16,6 +16,8 @@ from sift_tpu_torch.config import DEFAULT_CONFIG
 from sift_tpu_torch.ops import pyramid as pyr
 from sift_tpu_torch.utils import profiling
 
+from _torch_threads import one_thread  # noqa: F401
+
 OCTAVE_STAGES = ("sift.scan", "sift.refine", "sift.orient", "sift.compact",
                  "sift.descr")
 
@@ -204,17 +206,7 @@ def test_traced_run_never_synchronises(monkeypatch, small_image):
     assert np.isfinite(profiling.summary()["x/octave1"]["total_ms"])
 
 
-@pytest.fixture
-def one_thread():
-    # the SfM path's many small ops run several times faster on one
-    # thread than on threads that contend with other test processes
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_mapping_span_tree(one_thread):
+def test_mapping_span_tree():
     """A small CPU run_mapping (caps of 640 keypoints a frame, so that
     the plain matcher stays cheap): one root `mapping.run`, its four
     stages as children, each bundle adjustment an `sfm.ba` span (in

@@ -3,8 +3,10 @@ ladder give equal results on seeded inputs), the counters and the span
 report as specified, and the CLI's saturation counters and span
 report."""
 
+import ast
 import dataclasses
 import logging
+import pathlib
 import threading
 
 import numpy as np
@@ -19,6 +21,29 @@ from sift_tpu_torch.utils import caps as tcaps
 from sift_tpu_torch.utils import logger as tlogger
 from sift_tpu_torch.utils import metrics as tmetrics
 from sift_tpu_torch.utils import profiling as tprof
+
+from _torch_threads import one_thread  # noqa: F401
+
+
+def test_every_port_test_module_takes_the_thread_rule():
+    """Every tests/test_torch_*.py module imports the one thread fixture
+    from tests/_torch_threads.py, and none defines a fixture of its own
+    that sets torch's thread count."""
+    paths = sorted(pathlib.Path(__file__).parent.glob("test_torch_*.py"))
+    assert len(paths) >= 30
+    for path in paths:
+        tree = ast.parse(path.read_text())
+        assert any(isinstance(node, ast.ImportFrom)
+                   and node.module == "_torch_threads"
+                   and "one_thread" in {a.name for a in node.names}
+                   for node in tree.body), path.name
+        for fn in ast.walk(tree):
+            if not isinstance(fn, ast.FunctionDef) or not any(
+                    "fixture" in ast.unparse(d) for d in fn.decorator_list):
+                continue
+            assert not any(isinstance(n, ast.Attribute)
+                           and n.attr == "set_num_threads"
+                           for n in ast.walk(fn)), (path.name, fn.name)
 
 
 def test_pow2_cap_matches_jax():
