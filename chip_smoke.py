@@ -120,7 +120,9 @@ sift_tpu_torch/csrc, then runs, one line per phase:
      a closure), then prints the wall time of one call after a
      warm-up by stage (front end, reconstruct, loop closure + pose
      graph, final BA) and the device busy time, device events and
-     largest device kernels of one call (torch.profiler);
+     largest device kernels of one call (torch.profiler); 6d runs 6c's
+     sequence cold, warm and eagerly: the CUDA graphs of the RANSACs'
+     stretches and of BA's LM iterations give the eager map bit for bit;
   7. the multi-device layer (sift_tpu_torch.parallel), each entry with
      its launch counts and its median wall time of 3 calls after a
      warm-up: 7a world 1 on NCCL in this process -- the B = 8 1080p
@@ -1290,6 +1292,8 @@ def phase_refine_edges(cfg) -> None:
           "refine_candidates_plain")
     n_band = (int(args[3].sum()), int(want.valid.sum()))
 
+    # the test module imports its thread fixture from tests/_torch_threads.py
+    sys.path.insert(0, str(ROOT / "tests"))
     spec = importlib.util.spec_from_file_location(
         "refine_planted", ROOT / "tests" / "test_torch_refine_kernel.py")
     planted = importlib.util.module_from_spec(spec)
@@ -2370,7 +2374,8 @@ def phase_mapping_gated(textures) -> None:
     frames of 240x320, sift_tpu/eval.py:248-249), default arguments,
     exporting to a temporary directory; the four mapping gates, both
     export files, and the launches of every kernel: segsum once per
-    segment sum that the call's sfm.ba and sfm.posegraph spans make."""
+    segment sum that the call's sfm.ba and sfm.posegraph spans make
+    (with the sums of BA's graph replays, segsum_replays)."""
     import os
     import tempfile
     from sift_tpu_torch.sfm.mapping import (mapping_ate,
@@ -2382,12 +2387,13 @@ def phase_mapping_gated(textures) -> None:
                                            textures=textures)
     t0 = time.perf_counter()
     profiling.clear()
-    with tempfile.TemporaryDirectory() as td, profiling.tracing():
+    with tempfile.TemporaryDirectory() as td, profiling.tracing(), \
+            segsum_replays() as tally:
         res, launches = counted(lambda: run_mapping(
             frames, k, export_prefix=os.path.join(td, "map")))
         exported = [os.path.exists(p) for p in res.stats["export"].values()]
     wall = time.perf_counter() - t0
-    check_segsum_launches("6a", launches, profiling.spans())
+    check_segsum_launches("6a", launches, profiling.spans(), tally)
     ate = mapping_ate(res, gt)
     print(f"phase 6a mapping {n_frames}x{hw[0]}x{hw[1]} on the card: "
           f"{_stats_line(res.stats, ate)} exported={exported} "
@@ -2424,19 +2430,72 @@ def segsum_sums(recs) -> int:
                   if r.name == "sfm.posegraph"))
 
 
-def check_segsum_launches(phase: str, launches: dict, recs) -> int:
+class _Tally:
+    """What segsum_replays counted: the segment sums that graph replays
+    launched (`replayed`), and those of them that each capture's
+    checking replay launched (`checks`)."""
+
+    def __init__(self):
+        self.replayed = self.checks = 0
+
+
+@contextlib.contextmanager
+def segsum_replays():
+    """Inside it, the segsum wrapper's `launches` also counts the sums
+    that CUDA-graph replays of graphs.CACHE launch: the wrapper counts
+    its Python calls, and a replay makes none. A capture calls the
+    wrapper without launching anything; those calls are taken off the
+    count and kept as the graph's sums, which every replay of the graph
+    adds back. The cache replays each capture once to check it (those
+    sums are not the call's own: `checks`). The cache is cleared on
+    entry, so that every graph replayed inside was captured inside; the
+    graphs it captures go on counting after it, which `counted` zeroes.
+    Yields the _Tally."""
+    from unittest import mock
+    from sift_tpu_torch.geometry import graphs
+    from sift_tpu_torch.ops.segsum import segment_sum
+    cache = graphs.CACHE
+    capture = cache._capture
+    tally = _Tally()
+
+    def counting_capture(fn, args, pools):
+        before = segment_sum.launches
+        try:
+            replay, outs = capture(fn, args, pools)
+        finally:
+            sums = segment_sum.launches - before
+            segment_sum.launches = before
+        tally.checks += sums
+
+        def counting_replay():
+            replay()
+            segment_sum.launches += sums
+            tally.replayed += sums
+        return counting_replay, outs
+
+    cache.clear()
+    with mock.patch.object(cache, "_capture", counting_capture):
+        yield tally
+
+
+def check_segsum_launches(phase: str, launches: dict, recs,
+                          tally: _Tally) -> int:
     """Every segment sum of a run_mapping call launched csrc/segsum.cu
-    once: its launches equal segsum_sums of the call's spans."""
+    once: its launches, counted inside segsum_replays and less the
+    capture checks' (`tally`, zeroed before the call), equal
+    segsum_sums of the call's spans."""
     want = segsum_sums(recs)
     n_ba = sum(r.name == "sfm.ba" for r in recs)
     n_pg = sum(r.name == "sfm.posegraph" for r in recs)
+    got = launches["segsum"] - tally.checks
     print(f"phase {phase} segsum launches {launches['segsum']} over {n_ba} "
           f"sfm.ba and {n_pg} sfm.posegraph spans, which make {want} "
-          f"segment sums")
+          f"segment sums; {tally.replayed} of the launches by graph "
+          f"replays, {tally.checks} of those by the capture checks")
     check(n_ba > 0 and n_pg > 0, f"phase {phase}: run_mapping recorded "
           f"{n_ba} sfm.ba and {n_pg} sfm.posegraph spans")
-    check(launches["segsum"] == want, f"phase {phase}: segsum launched "
-          f"{launches['segsum']} times, not once per segment sum ({want})")
+    check(got == want, f"phase {phase}: segsum launched {got} times "
+          f"(without the capture checks), not once per segment sum ({want})")
     return want
 
 
@@ -2515,7 +2574,8 @@ def phase_mapping_cli_size(textures, report) -> None:
     script, phase 7 included, near 400 s on a slow host), by stage: the
     host ms of run_mapping's four spans (utils.profiling; each stage
     ends by reading its results on the host), with segsum launched once
-    per segment sum of the call's spans and the call's map bit for bit
+    per segment sum of the call's spans (segsum_replays: the warm call's
+    BA iterations replay graphs) and the call's map bit for bit
     the first's; phase 2's segsum rows at the call's shapes; then the
     device busy time and device events of one call (torch.profiler)."""
     from sift_tpu_torch.sfm.mapping import (mapping_ate,
@@ -2526,18 +2586,20 @@ def phase_mapping_cli_size(textures, report) -> None:
     n_frames, hw = MAP_CLI
     frames, k, gt = render_corner_sequence(n_frames=n_frames, size=hw,
                                            textures=textures)
-    res = run_mapping(frames, k)
-    ate = mapping_ate(res, gt)
-    print(f"phase 6c mapping {n_frames}x{hw[0]}x{hw[1]} on the card: "
-          f"{_stats_line(res.stats, ate)}")
-    check(res.stats["n_registered"] >= 0.9 * n_frames,
-          f"{res.stats['n_registered']} of {n_frames} frames registered")
-    check(res.stats["n_closures"] >= 1, "no loop closure")
-    profiling.clear()
-    with profiling.tracing():
-        t0 = time.perf_counter()
-        again, launches = counted(lambda: run_mapping(frames, k))
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    with segsum_replays() as tally:
+        res = run_mapping(frames, k)
+        ate = mapping_ate(res, gt)
+        print(f"phase 6c mapping {n_frames}x{hw[0]}x{hw[1]} on the card: "
+              f"{_stats_line(res.stats, ate)}")
+        check(res.stats["n_registered"] >= 0.9 * n_frames,
+              f"{res.stats['n_registered']} of {n_frames} frames registered")
+        check(res.stats["n_closures"] >= 1, "no loop closure")
+        tally.replayed = tally.checks = 0
+        profiling.clear()
+        with profiling.tracing():
+            t0 = time.perf_counter()
+            again, launches = counted(lambda: run_mapping(frames, k))
+            wall_ms = (time.perf_counter() - t0) * 1e3
     stages = {n: v["total_ms"] for n, v in profiling.summary().items()
               if n.startswith("mapping.")}
     print(f"phase 6c timing (one call after a warm-up): run_mapping "
@@ -2548,7 +2610,7 @@ def phase_mapping_cli_size(textures, report) -> None:
           f"for bit: {same}")
     check(all(same.values()), f"run_mapping gave another map: {same}")
     recs = profiling.spans()
-    check_segsum_launches("6c", launches, recs)
+    check_segsum_launches("6c", launches, recs, tally)
     phase_segsum([s.attrs for s in recs if s.name == "sfm.ba"],
                  [s.attrs for s in recs if s.name == "sfm.posegraph"],
                  report, launches["segsum"])
@@ -2607,27 +2669,46 @@ class _AtenCount:
 
 
 def phase_ransac_graphs(textures) -> None:
-    """Phase 6d: the geometry layer's CUDA graphs (geometry/graphs.py)
-    against the eager path, bit for bit. run_mapping of phase 6c's 24
-    frames of 480x640 with the cache cleared (a cold request: its
-    spans' share of RANSAC calls that replayed every stretch), again
-    (warm: every call replays), and eagerly (the cache bypassed): equal
-    maps, no key refused, no miss in the warm call. Then, at every
-    padded N of those calls, find_essential_ransac and pnp_ransac on one
-    problem (a miss: each stretch captured) and another (a hit), each
-    against its eager run: E, R, t, inliers, n_inliers and ok equal bit
-    for bit, the cache's counts as expected; ATen calls and host ms of
-    one call eagerly and on a hit at the largest N."""
+    """Phase 6d: the CUDA graphs (geometry/graphs.py) of the geometry
+    layer's stretches and of BA's LM iterations against the eager path,
+    bit for bit. run_mapping of phase 6c's 24 frames of 480x640 with the
+    cache cleared (a cold request: its spans' share of RANSAC calls that
+    replayed every stretch and of BAs that replayed every iteration),
+    again (warm: every call replays), and eagerly (the cache bypassed):
+    equal maps, no key refused, no miss in the warm call. Then
+    bundle_adjust at the warm call's largest table, a hit against its
+    eager run bit for bit, with ATen calls and host ms of one call
+    eagerly and on a hit. Then, at every padded N of those calls,
+    find_essential_ransac and pnp_ransac on one problem (a miss: each
+    stretch captured) and another (a hit), each against its eager run:
+    E, R, t, inliers, n_inliers and ok equal bit for bit, the cache's
+    counts as expected; ATen calls and host ms of one call eagerly and
+    on a hit at the largest N."""
+    import collections
     from unittest import mock
     import torch
     from sift_tpu_torch.geometry import graphs
     from sift_tpu_torch.geometry.epipolar import find_essential_ransac
     from sift_tpu_torch.geometry.pnp import pnp_ransac
+    from sift_tpu_torch.sfm import ba, incremental, mapping
     from sift_tpu_torch.sfm.mapping import render_corner_sequence, run_mapping
     from sift_tpu_torch.utils import profiling
     cache = graphs.CACHE
     eager = mock.patch.object(cache, "_on_card", lambda ts: False)
     names = ("geometry.essential", "geometry.pnp")
+    kinds = {"RANSAC": names, "BA": ("sfm.ba",)}
+    ba_calls = {}
+
+    def recording_ba(prob, **kw):
+        ba_calls[(prob.cam_idx.shape[0], prob.points.shape[0])] = (prob, kw)
+        return ba.bundle_adjust(prob, **kw)
+
+    @contextlib.contextmanager
+    def recording():
+        """The BA calls of run_mapping's two callers, by table shape."""
+        with mock.patch.object(incremental, "bundle_adjust", recording_ba), \
+                mock.patch.object(mapping, "bundle_adjust", recording_ba):
+            yield
     n_frames, hw = MAP_CLI
     frames, k, _ = render_corner_sequence(n_frames=n_frames, size=hw,
                                           textures=textures)
@@ -2640,10 +2721,11 @@ def phase_ransac_graphs(textures) -> None:
             res = run_mapping(frames, k)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        recs = [s for s in profiling.spans() if s.name in names]
+        recs = [s for s in profiling.spans()
+                if s.name in names + kinds["BA"]]
         stages = {n: round(v["total_ms"], 1)
                   for n, v in profiling.summary().items()
-                  if n.startswith("mapping.") or n in names}
+                  if n.startswith("mapping.") or n in names + kinds["BA"]}
         return res, recs, wall, stages
 
     cache.clear()
@@ -2651,25 +2733,30 @@ def phase_ransac_graphs(textures) -> None:
     runs = {}
     for label in ("cold", "warm", "eager"):
         before = (cache.hits, cache.misses, cache.refused)
-        if label == "eager":
-            with eager:
-                runs[label] = traced_map()
-        else:
+        with (eager if label == "eager" else recording() if label == "warm"
+              else contextlib.nullcontext()):
             runs[label] = traced_map()
         res, recs, wall, stages = runs[label]
-        hit = sum(bool(s.attrs["graph_hit"]) for s in recs)
-        print(f"phase 6d run_mapping {label}: {wall:.2f} s; RANSAC calls "
-              f"{len(recs)}, replayed every stretch {hit} "
-              f"({100.0 * hit / max(len(recs), 1):.1f} %); cache hits "
-              f"{cache.hits - before[0]} misses {cache.misses - before[1]} "
-              f"refused {cache.refused - before[2]}; host ms {stages}")
+        shares = []
+        for kind, span_names in kinds.items():
+            calls = [s for s in recs if s.name in span_names]
+            hit = sum(bool(s.attrs["graph_hit"]) for s in calls)
+            shares.append(f"{kind} calls {len(calls)}, replayed every "
+                          f"{'stretch' if kind == 'RANSAC' else 'iteration'}"
+                          f" {hit} ({100.0 * hit / max(len(calls), 1):.1f} %)")
+        print(f"phase 6d run_mapping {label}: {wall:.2f} s; "
+              + "; ".join(shares) + f"; cache hits {cache.hits - before[0]} "
+              f"misses {cache.misses - before[1]} refused "
+              f"{cache.refused - before[2]}; host ms {stages}")
         if label == "cold":
             pool_mb = (torch.cuda.memory_reserved() - reserved) / 2 ** 20
     check(cache.refused == 0, f"the cache refused {cache.refused} keys: "
           f"{[k for k in cache.keys() if cache._graphs[k] is None]}")
-    check(runs["warm"][1] and all(s.attrs["graph_hit"]
-                                  for s in runs["warm"][1]),
-          "the warm run_mapping did not replay every RANSAC stretch")
+    warm = runs["warm"][1]
+    check(all(any(s.name in n for s in warm) for n in kinds.values())
+          and all(s.attrs["graph_hit"] for s in warm),
+          "the warm run_mapping did not replay every RANSAC stretch and "
+          "every BA iteration")
     check(len(cache.keys()) == cache.misses,
           f"{cache.misses} misses for {len(cache.keys())} keys")
     for label in ("cold", "warm"):
@@ -2680,9 +2767,33 @@ def phase_ransac_graphs(textures) -> None:
               f"eager map: {same}")
     sizes = {n: sorted({s.attrs["n"] for s in runs["cold"][1]
                         if s.name == n}) for n in names}
-    print(f"phase 6d keys {len(cache.keys())} (device memory reserved "
-          f"{pool_mb:+.1f} MiB over the cold run); padded N by solver "
-          f"{sizes}")
+    ba_keys = sorted((k[1][3][0][0], k[1][1][0][0], k[1][0][0][0])
+                     for k in cache.keys() if k[0] == "ba.lm_iter")
+    print(f"phase 6d keys {len(cache.keys())}: "
+          f"{dict(collections.Counter(k[0] for k in cache.keys()))} "
+          f"(device memory reserved {pool_mb:+.1f} MiB over the cold run); "
+          f"padded N by solver {sizes}; BA (obs, points, cams) {ba_keys}")
+
+    (o, p), (prob, kw) = max(ba_calls.items())
+    with eager:
+        want = ba.bundle_adjust(prob, **kw)
+    h, m = cache.hits, cache.misses
+    got = ba.bundle_adjust(prob, **kw)
+    check((cache.hits - h, cache.misses - m) == (kw["iters"], 0),
+          f"bundle_adjust at O = {o}, P = {p}: hits {cache.hits - h} and "
+          f"misses {cache.misses - m}, not {kw['iters']} and 0")
+    check(graphs.same_bits((got.cameras, got.points),
+                           (want.cameras, want.points)),
+          f"bundle_adjust at O = {o}, P = {p}: a hit differs from eager")
+    for label in ("eager", "hit"):
+        with eager if label == "eager" else contextlib.nullcontext():
+            with _AtenCount() as c:
+                ba.bundle_adjust(prob, **kw)
+            host, wall = _host_and_wall_ms(
+                lambda: ba.bundle_adjust(prob, **kw), runs=5)
+        print(f"phase 6d bundle_adjust at O = {o}, P = {p}, {kw['iters']} "
+              f"iterations, {label}: {c.n} ATen calls, host {host:.2f} ms "
+              f"to return, {wall:.2f} ms a call")
 
     fields = ("E", "R", "t", "inliers", "n_inliers", "ok")
     solvers = {"geometry.essential": (
@@ -3583,6 +3694,22 @@ def phase_oracle(card: str) -> None:
           f"({sat})")
     check(recall >= ORACLE_MATCH_RECALL,
           f"phase 8c: match recall {recall} < {ORACLE_MATCH_RECALL}")
+
+
+def _host_and_wall_ms(fn, runs: int) -> tuple:
+    """Medians over `runs` calls of fn after one more: (ms until fn
+    returns, the host's dispatch; ms until the card has finished)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    host, wall = [], []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(host), statistics.median(wall)
 
 
 def _median_wall_ms(fn, runs: int = 10) -> float:

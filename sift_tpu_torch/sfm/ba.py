@@ -18,6 +18,14 @@ image coordinates.
     with torch.where on the device, so the loop never waits on the host.
   * The per-observation Jacobians are written out analytically
     (lie.so3_exp_jac), where the JAX package takes jax.jacfwd.
+  * On the card `bundle_adjust` replays each LM iteration (the
+    Schur/CG step, both costs, the accept and the damping update:
+    `_lm_iter`) as one CUDA graph cached by shape (geometry/graphs.py),
+    one graph launch in place of ~1,340 ATen calls an iteration at 30 CG
+    steps; the plans and the first damping value are made eagerly, once
+    a call. The sharded loop (`bundle_adjust_loop` with a `psum`,
+    parallel/ba.py) stays eager: its all-reduces are collectives outside
+    any one card's graph.
 
 Cameras can be frozen via `fixed_cams` (gauge fixing).
 """
@@ -28,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from sift_tpu_torch.geometry import graphs
 from sift_tpu_torch.geometry.lie import so3_exp, so3_exp_jac
 from sift_tpu_torch.ops import segsum
 from sift_tpu_torch.utils.profiling import span
@@ -238,10 +247,44 @@ def _lm_step(prob: BAProblem, lam: torch.Tensor, huber_delta: float,
     return dc, dp
 
 
+def _lm_iteration(prob: BAProblem, lam: torch.Tensor, huber_delta: float,
+                  loss: str, cg_iters: int, plans, psum=None,
+                  psum_pt=_SAME):
+    """One LM iteration: the damped step, kept where it lowers the cost.
+    Returns (prob with the kept cameras and points, the next lam)."""
+    dc, dp = _lm_step(prob, lam, huber_delta, loss, cg_iters, plans,
+                      psum=psum, psum_pt=psum_pt)
+    cand = prob._replace(cameras=prob.cameras + dc,
+                         points=prob.points + dp)
+    c0 = _cost(prob, huber_delta, loss, psum=psum)
+    c1 = _cost(cand, huber_delta, loss, psum=psum)
+    accept = (c1 < c0) & c1.isfinite()
+    prob = prob._replace(
+        cameras=torch.where(accept, cand.cameras, prob.cameras),
+        points=torch.where(accept, cand.points, prob.points))
+    lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
+                      torch.clamp(lam * 4.0, max=1e3))
+    return prob, lam
+
+
+def _lm_iter(cameras, points, lam, cam_idx, pt_idx, uv, mask, fixed_cams,
+             cam_perm, cam_offsets, pt_perm, pt_offsets, huber_delta: float,
+             loss: str, cg_iters: int):
+    """_lm_iteration on one card as a stretch of graphs.GraphCache: the
+    state (cameras, points, lam), the call's table and the two plans'
+    order in; the next (cameras, points, lam) out."""
+    prob = BAProblem(cameras, points, cam_idx, pt_idx, uv, mask, fixed_cams)
+    plans = (segsum.Plan(cam_idx, cameras.shape[0], mask, cam_perm,
+                         cam_offsets),
+             segsum.Plan(pt_idx, points.shape[0], mask, pt_perm, pt_offsets))
+    prob, lam = _lm_iteration(prob, lam, huber_delta, loss, cg_iters, plans)
+    return prob.cameras, prob.points, lam
+
+
 def bundle_adjust_loop(prob: BAProblem, iters: int, cg_iters: int,
                        huber_delta: float, loss: str, lam0: float,
                        psum=None, psum_pt=_SAME) -> BAProblem:
-    """LM loop shared by the single-card and (future) sharded adjusters.
+    """The eager LM loop, shared by the CPU and the sharded adjusters.
 
     With `psum`, the observation table is assumed sharded over devices:
     every cross-observation reduction -- normal-equation blocks,
@@ -253,18 +296,8 @@ def bundle_adjust_loop(prob: BAProblem, iters: int, cg_iters: int,
     lam = torch.tensor(lam0, dtype=torch.float32, device=prob.cameras.device)
     plans = _make_plans(prob)
     for _ in range(iters):
-        dc, dp = _lm_step(prob, lam, huber_delta, loss, cg_iters, plans,
-                          psum=psum, psum_pt=psum_pt)
-        cand = prob._replace(cameras=prob.cameras + dc,
-                             points=prob.points + dp)
-        c0 = _cost(prob, huber_delta, loss, psum=psum)
-        c1 = _cost(cand, huber_delta, loss, psum=psum)
-        accept = (c1 < c0) & c1.isfinite()
-        prob = prob._replace(
-            cameras=torch.where(accept, cand.cameras, prob.cameras),
-            points=torch.where(accept, cand.points, prob.points))
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
-                          torch.clamp(lam * 4.0, max=1e3))
+        prob, lam = _lm_iteration(prob, lam, huber_delta, loss, cg_iters,
+                                  plans, psum=psum, psum_pt=psum_pt)
     return prob
 
 
@@ -274,17 +307,36 @@ def bundle_adjust(prob: BAProblem, iters: int = 20, cg_iters: int = 30,
                   ) -> BAProblem:
     """Run LM bundle adjustment; returns the problem with updated
     cameras/points. Fixed iteration count, accept/reject by cost, on
-    the device of prob's tensors. Inside a span `sfm.ba` whose
-    attributes are the padded table's shapes (obs, points, cams), the
-    rows its segment sums read (obs_used: `n_obs`, the unmasked rows,
-    where the caller knows it without reading the mask back, else
-    obs) and the loop's counts (iters, cg_iters)."""
+    the device of prob's tensors; on the card each iteration goes
+    through graphs.CACHE (`ba.lm_iter`), on the CPU the eager loop.
+    Inside a span `sfm.ba` whose attributes are the padded table's
+    shapes (obs, points, cams), the rows its segment sums read
+    (obs_used: `n_obs`, the unmasked rows, where the caller knows it
+    without reading the mask back, else obs), the loop's counts (iters,
+    cg_iters) and graph_hit (every iteration replayed a graph)."""
     o = prob.cam_idx.shape[0]
     with span("sfm.ba", obs=o, obs_used=o if n_obs is None else n_obs,
               points=prob.points.shape[0], cams=prob.cameras.shape[0],
-              iters=iters, cg_iters=cg_iters):
-        return bundle_adjust_loop(prob, iters, cg_iters, huber_delta, loss,
-                                  lam0)
+              iters=iters, cg_iters=cg_iters, graph_hit=False) as sp:
+        plans = _make_plans(prob)
+        lam = torch.tensor(lam0, dtype=torch.float32,
+                           device=prob.cameras.device)
+        cam_plan, pt_plan = plans
+        if cam_plan.perm is None:       # CPU plans (index_add_): eagerly
+            for _ in range(iters):
+                prob, lam = _lm_iteration(prob, lam, huber_delta, loss,
+                                          cg_iters, plans)
+            return prob
+        state = (prob.cameras, prob.points, lam)
+        table = (prob.cam_idx, prob.pt_idx, prob.uv, prob.mask,
+                 prob.fixed_cams, cam_plan.perm, cam_plan.offsets,
+                 pt_plan.perm, pt_plan.offsets)
+        hits = graphs.CACHE.hits
+        for _ in range(iters):
+            state = graphs.CACHE.run("ba.lm_iter", _lm_iter, state + table,
+                                     (huber_delta, loss, cg_iters))
+        sp.set(graph_hit=graphs.CACHE.hits - hits == iters)
+        return prob._replace(cameras=state[0], points=state[1])
 
 
 def reproj_rmse(prob: BAProblem) -> torch.Tensor:

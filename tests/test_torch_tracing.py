@@ -211,8 +211,8 @@ def test_mapping_span_tree():
     the plain matcher stays cheap): one root `mapping.run`, its four
     stages as children, each bundle adjustment an `sfm.ba` span (in
     reconstruct and in the final BA) with the padded table's shapes,
-    the rows its sums read and the loop's counts, the pose graph an
-    `sfm.posegraph` span in the loop-closure
+    the rows its sums read, the loop's counts and graph_hit (false on
+    the CPU), the pose graph an `sfm.posegraph` span in the loop-closure
     stage with its poses, edges and iterations."""
     import dataclasses
     import chip_smoke
@@ -244,7 +244,9 @@ def test_mapping_span_tree():
     assert [stage_of(s) for s in graphs] == ["mapping.loop_closure"]
     for s in bas:
         assert set(s.attrs) == {"obs", "obs_used", "points", "cams",
-                                "iters", "cg_iters"}
+                                "iters", "cg_iters", "graph_hit"}
+        # the CPU's loop runs eagerly: no iteration replays a graph
+        assert s.attrs["graph_hit"] is False
         assert s.attrs["cams"] == len(frames) and s.attrs["cg_iters"] == 30
         # padded to powers of two: 64 observations and 32 points at least
         for n, lo in (("obs", 64), ("points", 32)):
